@@ -1,0 +1,66 @@
+"""Serving utilities: weights from a reference ``.pth`` or a seed, and a timed
+eval forward with the reference's ``AVG_time`` semantics."""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Union
+
+import torch
+
+from dffx_torch.checkpoint import load_jax_params, load_torch_checkpoint
+from dffx_torch.models import Network, init_params
+
+
+def load_params_auto(source: Union[str, int], *, device="cpu") -> Network:
+    """An eval-mode ``Network`` on ``device`` with weights from a reference
+    ``.pth`` path, or from an int seed (``init_params(seed)``)."""
+    net = Network()
+    if isinstance(source, int):
+        load_jax_params(net, init_params(source))
+    elif os.path.isfile(source):
+        net.load_state_dict(load_torch_checkpoint(source))
+    else:
+        raise FileNotFoundError(f"checkpoint {source!r} not found")
+    return net.to(device).eval()
+
+
+class TimedForward:
+    """Eval forward with timing around the model call only (`test.py:115-119`):
+    inputs are copied to the model's device before the clock starts.  On a
+    CUDA device the time comes from CUDA events on the current stream.
+
+    ``avg_time`` is seconds per sample, as the reference's ``AVG_time``: with a
+    batch of B, one call adds B samples."""
+
+    def __init__(self, model: Network, *, dtype: torch.dtype = torch.float32):
+        self.model = model.eval()
+        self.dtype = dtype
+        self.device = next(model.parameters()).device
+        self.total = 0.0
+        self.count = 0
+
+    def __call__(self, fs, focus_dists):
+        fs = torch.as_tensor(fs).to(self.device, self.dtype)
+        fd = torch.as_tensor(focus_dists).to(self.device, torch.float32)
+        with torch.inference_mode():
+            if self.device.type == "cuda":
+                stream = torch.cuda.current_stream(self.device)
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record(stream)
+                outs = self.model(fs, fd)
+                end.record(stream)
+                end.synchronize()
+                seconds = start.elapsed_time(end) / 1e3
+            else:
+                t0 = time.perf_counter()
+                outs = self.model(fs, fd)
+                seconds = time.perf_counter() - t0
+        self.total += seconds
+        self.count += int(fs.shape[0])
+        return outs
+
+    @property
+    def avg_time(self) -> float:
+        return self.total / max(self.count, 1)

@@ -1,0 +1,214 @@
+"""The full-resolution focus-measure kernels: wrappers and plain twins.
+
+Three hand-written CUDA kernels (``dffx_torch/csrc``) replace the JAX
+package's Pallas kernels on DFFNet's eval path, chained conv -> rb2d ->
+attention as in ``dffx/models/layers.py::_fm_fused_chain``:
+
+* ``fm_conv_bn_relu``        Conv3d(3->8, (1,9,9), pad (0,8,8), dil (1,2,2)) + BN + ReLU
+* ``rb2d_residual``          relu(x + BN2(conv2(relu(BN1(conv1 x))))), (1,3,3) convs
+* ``srd_attention_residual`` f + relu(W1 . relu(Wn . [f(n-1); f(n); f(n+1)]))
+
+Each takes and returns torch's ``(B, C, N, H, W)`` layout, fp32 or bf16
+activations; weights are torch-layout ``(Cout, Cin, kd, kh, kw)``, and eval
+BN comes folded into fp32 ``(scale, shift)`` pairs (``bn_fused_affine``).
+
+Dispatch is by device.  A CPU tensor goes to the plain twin (``*_ref``), a
+CUDA tensor launches the kernel or raises; nothing falls back.  ``launches``
+counts kernel launches per wrapper, so a run can show it went through them.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from dffx_torch.ops import _build
+from dffx_torch.ops.norm import bn_fused_affine
+
+__all__ = [
+    "bn_fused_affine",
+    "fm_conv_bn_relu",
+    "fm_conv_bn_relu_ref",
+    "rb2d_residual",
+    "rb2d_residual_ref",
+    "srd_attention_residual",
+    "srd_attention_residual_ref",
+    "launches",
+    "reset_launches",
+]
+
+Affine = Tuple[torch.Tensor, torch.Tensor]
+
+#: kernel launches per wrapper since the last ``reset_launches()``
+launches = {"fm_conv_bn_relu": 0, "rb2d_residual": 0, "srd_attention_residual": 0}
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # DFFX_DTYPE_* in csrc/common.cuh
+_KERNEL_CHANNELS = (8, 16, 32)
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _view(v: torch.Tensor) -> torch.Tensor:
+    return v.view(1, -1, 1, 1, 1)
+
+
+def _check_act(x: torch.Tensor, c: int | None = None) -> None:
+    if x.dim() != 5:
+        raise ValueError(f"expected (B, C, N, H, W), got shape {tuple(x.shape)}")
+    if c is not None and x.shape[1] != c:
+        raise ValueError(f"expected {c} channels, got shape {tuple(x.shape)}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"activations must be float32 or bfloat16, got {x.dtype}")
+    if min(x.shape) < 1:
+        raise ValueError(f"empty input {tuple(x.shape)}")
+
+
+def _check_param(t: torch.Tensor, shape: tuple, name: str) -> None:
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+
+
+def _param(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A weight or affine vector as the kernel takes it: fp32, contiguous, on x's card."""
+    if t.device != x.device:
+        raise ValueError(f"parameter on {t.device}, activations on {x.device}")
+    return t.float().contiguous()
+
+
+def _cuda_args(x: torch.Tensor, c_ok=None):
+    """Check what only the kernel needs; returns (library, stream handle)."""
+    if not x.is_contiguous():
+        raise ValueError("the CUDA kernels take contiguous (B, C, N, H, W) tensors")
+    if c_ok is not None and x.shape[1] not in c_ok:
+        raise ValueError(f"kernel built for C in {c_ok}, got C = {x.shape[1]}")
+    if x.shape[0] * x.shape[2] > 65535:
+        raise ValueError("B * N is a grid dimension of the launch: at most 65535")
+    return _build.library(), torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+
+
+def _unsupported(x: torch.Tensor):
+    return RuntimeError(f"no kernel or twin for device {x.device}")
+
+
+# --------------------------------------------------------------------------
+# fm_conv_bn_relu
+# --------------------------------------------------------------------------
+
+
+def fm_conv_bn_relu_ref(x, w, scale, shift):
+    """Plain twin of ``fm_conv_bn_relu``."""
+    y = F.conv3d(x, w.to(x.dtype), padding=(0, 8, 8), dilation=(1, 2, 2))
+    return torch.relu(y.float() * _view(scale.float()) + _view(shift.float())).to(x.dtype)
+
+
+def fm_conv_bn_relu(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                    shift: torch.Tensor) -> torch.Tensor:
+    """x ``(B, 3, N, H, W)``, w ``(8, 3, 1, 9, 9)``, scale/shift ``(8,)`` ->
+    ``(B, 8, N, H, W)`` in x.dtype.  Any H, W >= 1."""
+    _check_act(x, 3)
+    _check_param(w, (8, 3, 1, 9, 9), "w")
+    _check_param(scale, (8,), "scale")
+    _check_param(shift, (8,), "shift")
+    if x.device.type == "cpu":
+        return fm_conv_bn_relu_ref(x, w, scale, shift)
+    if x.device.type != "cuda":
+        raise _unsupported(x)
+    lib, stream = _cuda_args(x)
+    b, _, n, h, wd = x.shape
+    w, scale, shift = (_param(t, x) for t in (w, scale, shift))
+    y = torch.empty((b, 8, n, h, wd), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.dffx_fm_conv_bn_relu(
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(), y.data_ptr(),
+            b, n, h, wd, _DTYPES[x.dtype], stream)
+    _raise_on(err, "fm_conv_bn_relu")
+    launches["fm_conv_bn_relu"] += 1
+    return y
+
+
+# --------------------------------------------------------------------------
+# rb2d_residual
+# --------------------------------------------------------------------------
+
+
+def rb2d_residual_ref(x, w1, aff1: Affine, w2, aff2: Affine):
+    """Plain twin of ``rb2d_residual``."""
+    r = F.conv3d(x, w1.to(x.dtype), padding=(0, 1, 1)).float()
+    r = torch.relu(r * _view(aff1[0].float()) + _view(aff1[1].float())).to(x.dtype)
+    r = F.conv3d(r, w2.to(x.dtype), padding=(0, 1, 1)).float()
+    r = r * _view(aff2[0].float()) + _view(aff2[1].float())
+    return torch.relu(x.float() + r).to(x.dtype)
+
+
+def rb2d_residual(x: torch.Tensor, w1: torch.Tensor, aff1: Affine, w2: torch.Tensor,
+                  aff2: Affine) -> torch.Tensor:
+    """x ``(B, C, N, H, W)``; w1/w2 ``(C, C, 1, 3, 3)``; aff = fp32 (scale, shift)
+    of shape ``(C,)``.  The kernel takes C in 8, 16, 32 and any H, W >= 1."""
+    _check_act(x)
+    c = x.shape[1]
+    for name, t in (("w1", w1), ("w2", w2)):
+        _check_param(t, (c, c, 1, 3, 3), name)
+    for name, t in (("aff1", aff1), ("aff2", aff2)):
+        _check_param(t[0], (c,), f"{name} scale")
+        _check_param(t[1], (c,), f"{name} shift")
+    if x.device.type == "cpu":
+        return rb2d_residual_ref(x, w1, aff1, w2, aff2)
+    if x.device.type != "cuda":
+        raise _unsupported(x)
+    lib, stream = _cuda_args(x, _KERNEL_CHANNELS)
+    b, _, n, h, wd = x.shape
+    ps = [_param(t, x) for t in (w1, aff1[0], aff1[1], w2, aff2[0], aff2[1])]
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = lib.dffx_rb2d_residual(
+            x.data_ptr(), *(p.data_ptr() for p in ps), y.data_ptr(),
+            b, c, n, h, wd, _DTYPES[x.dtype], stream)
+    _raise_on(err, "rb2d_residual")
+    launches["rb2d_residual"] += 1
+    return y
+
+
+# --------------------------------------------------------------------------
+# srd_attention_residual
+# --------------------------------------------------------------------------
+
+
+def srd_attention_residual_ref(f, wn, w1):
+    """Plain twin of ``srd_attention_residual``."""
+    a = torch.relu(F.conv3d(f, wn.to(f.dtype), padding=(1, 0, 0)))
+    return f + torch.relu(F.conv3d(a, w1.to(f.dtype)))
+
+
+def srd_attention_residual(f: torch.Tensor, wn: torch.Tensor, w1: torch.Tensor
+                           ) -> torch.Tensor:
+    """f ``(B, C, N, H, W)``; wn ``(C, C, 3, 1, 1)``; w1 ``(C, C, 1, 1, 1)``; both
+    bias-free.  The kernel takes C in 8, 16, 32 and any N, H, W >= 1."""
+    _check_act(f)
+    c = f.shape[1]
+    _check_param(wn, (c, c, 3, 1, 1), "wn")
+    _check_param(w1, (c, c, 1, 1, 1), "w1")
+    if f.device.type == "cpu":
+        return srd_attention_residual_ref(f, wn, w1)
+    if f.device.type != "cuda":
+        raise _unsupported(f)
+    lib, stream = _cuda_args(f, _KERNEL_CHANNELS)
+    b, _, n, h, wd = f.shape
+    wn, w1 = _param(wn, f), _param(w1, f)
+    y = torch.empty_like(f)
+    with torch.cuda.device(f.device):
+        err = lib.dffx_srd_attention_residual(
+            f.data_ptr(), wn.data_ptr(), w1.data_ptr(), y.data_ptr(),
+            b, c, n, h, wd, _DTYPES[f.dtype], stream)
+    _raise_on(err, "srd_attention_residual")
+    launches["srd_attention_residual"] += 1
+    return y

@@ -1,0 +1,113 @@
+"""dffx_torch's CUDA kernels on the card, each against its plain twin.
+
+Every test here is marked ``gpu`` and skips without a CUDA device.  The file
+imports no JAX, so on a machine with a GPU and no JAX it runs alone, without
+the suite's conftest (which sets JAX up):
+
+    python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dffx_torch.models import Network
+from dffx_torch.ops import kernels as tk
+
+pytestmark = pytest.mark.gpu
+SHAPES = [(1, 3, 64, 96), (2, 1, 40, 72), (1, 2, 7, 5)]  # (b, n, h, w); ragged edges
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(0)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tk.reset_launches()
+    return torch.device("cuda")
+
+
+def _act(rng, shape, dev):
+    return torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32)).to(dev)
+
+
+def _wt(rng, shape, dev):
+    return torch.from_numpy((rng.standard_normal(shape) * 0.1).astype(np.float32)).to(dev)
+
+
+def _aff(rng, c, dev):
+    g, b = rng.standard_normal(c), rng.standard_normal(c)
+    mu, va = rng.standard_normal(c) * 0.1, rng.random(c) + 0.5
+    return tuple(t.to(dev) for t in tk.bn_fused_affine(
+        *(torch.from_numpy(a.astype(np.float32)) for a in (g, b, mu, va))))
+
+
+@pytest.mark.parametrize("b,n,h,w", SHAPES)
+def test_fm_conv_bn_relu_matches_twin(cuda, rng, b, n, h, w):
+    args = (_act(rng, (b, 3, n, h, w), cuda), _wt(rng, (8, 3, 1, 9, 9), cuda),
+            *_aff(rng, 8, cuda))
+    got = tk.fm_conv_bn_relu(*args)
+    torch.cuda.synchronize()
+    assert tk.launches["fm_conv_bn_relu"] == 1
+    torch.testing.assert_close(got, tk.fm_conv_bn_relu_ref(*args), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("c", [8, 16, 32])
+@pytest.mark.parametrize("b,n,h,w", SHAPES)
+def test_rb2d_and_attention_match_twins(cuda, rng, b, n, h, w, c):
+    x = _act(rng, (b, c, n, h, w), cuda)
+    args = (x, _wt(rng, (c, c, 1, 3, 3), cuda), _aff(rng, c, cuda),
+            _wt(rng, (c, c, 1, 3, 3), cuda), _aff(rng, c, cuda))
+    got = tk.rb2d_residual(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, tk.rb2d_residual_ref(*args), atol=1e-4, rtol=0)
+    args = (x, _wt(rng, (c, c, 3, 1, 1), cuda), _wt(rng, (c, c, 1, 1, 1), cuda))
+    got = tk.srd_attention_residual(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, tk.srd_attention_residual_ref(*args), atol=1e-4, rtol=0)
+    assert tk.launches["rb2d_residual"] == 1 and tk.launches["srd_attention_residual"] == 1
+
+
+def test_bf16_rounds_only_the_output(cuda, rng):
+    """bf16 in, fp32 inside: within half a bf16 ulp (< 2^-8 |max|) of the fp32 twin."""
+    x = _act(rng, (1, 3, 2, 40, 72), cuda).bfloat16()
+    args = (_wt(rng, (8, 3, 1, 9, 9), cuda), *_aff(rng, 8, cuda))
+    got = tk.fm_conv_bn_relu(x, *args)
+    assert got.dtype == torch.bfloat16
+    ref = tk.fm_conv_bn_relu_ref(x.float(), *args)
+    bound = 2.0 ** -8 * ref.abs().max().item() + 1e-4
+    assert (got.float() - ref).abs().max().item() <= bound
+
+
+def test_wrappers_refuse_non_contiguous_and_unbuilt_widths(cuda, rng):
+    x = _act(rng, (1, 8, 2, 16, 16), cuda)
+    aff = _aff(rng, 8, cuda)
+    w = _wt(rng, (8, 8, 1, 3, 3), cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.rb2d_residual(x.transpose(3, 4), w, aff, w, aff)
+    x12 = _act(rng, (1, 12, 2, 16, 16), cuda)
+    with pytest.raises(ValueError, match="C in"):
+        tk.srd_attention_residual(x12, _wt(rng, (12, 12, 3, 1, 1), cuda),
+                                  _wt(rng, (12, 12, 1, 1, 1), cuda))
+    assert tk.launches == dict.fromkeys(tk.launches, 0)
+
+
+def test_network_on_the_card_matches_cpu(cuda, rng):
+    from dffx_torch.eval import load_params_auto
+
+    fs = torch.from_numpy(rng.uniform(-1, 1, (1, 4, 64, 96, 3)).astype(np.float32))
+    fd = torch.from_numpy(np.linspace(0.1, 1.5, 4, dtype=np.float32)[None])
+    net = load_params_auto(0, device=cuda)
+    assert isinstance(net, Network)
+    with torch.inference_mode():
+        got = net(fs.to(cuda), fd.to(cuda))
+        ref = load_params_auto(0)(fs, fd)
+    assert tk.launches == dict.fromkeys(tk.launches, 1)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.cpu(), r, atol=1e-4, rtol=0)
