@@ -3,15 +3,26 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-Builds the three CUDA kernels of DFFNet's eval path from dffx_torch/csrc,
-holds each against its plain PyTorch twin on the card, checks the forward
-against the stored goldens and against the same model on the CPU, and serves
-synthetic 10 x 384 x 384 focal stacks through ``TimedForward`` at batch 1
-and 4 in fp32 and bf16.  Every phase prints one JSON line and raises on
+Builds the five CUDA kernels from dffx_torch/csrc and holds each against its
+plain PyTorch twin on the card, in fp32 and bf16, at the shapes its paths
+give it and at ragged ones.  Then it drives two paths:
+
+* DFFNet (depth only): the goldens, the forward against the same model on
+  the CPU, and serving synthetic 10 x 384 x 384 stacks through
+  ``TimedForward`` at batch 1 and 4 in fp32 and bf16;
+* the end-to-end network (FlowNetwork alignment + DFFNet): the goldens, the
+  forward against the CPU at 10 x 192 x 320, bf16 against fp32, and serving
+  synthetic 10 x 608 x 1088 stacks (the real-scene shape) at batch 1 in fp32
+  and bf16.
+
+Each path's serving run starts with every launch count at 0 and checks the
+counts just after it.  Every phase prints one JSON line and raises on
 failure.  The second-to-last line lists each kernel with its launches in the
-serving run, its error against its twin and both times; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
-repository around it, the script exits non-zero and prints no result.
+end-to-end serving run, its error against its twin and both times at the
+end-to-end path's shapes (rb_of_chain: the sum over its three pyramid
+levels); the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
+device, or without the repository around it, the script exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -24,9 +35,12 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-N, H, W = 10, 384, 384  # the bench shape: DDFF-12-sized 10-slice stacks
+N, H, W = 10, 384, 384  # the DFFNet bench shape: DDFF-12-sized 10-slice stacks
+EH, EW = 608, 1088  # the end-to-end real-scene shape (bench.py's E2E stacks)
+MH, MW = 192, 320  # end-to-end GPU-vs-CPU shape: a CPU forward stays seconds
 FP32_ATOL = 1e-4
 GOLDEN_ATOL = 2e-4
+WARPED_SUM_ATOL = 2e-3  # e2e_warped_sum: sums over 64 x 96 pixels, values up to about 107
 REPS = 25  # timed launches per kernel and per twin (median reported)
 #: TPU kernels the CUDA kernels replace (dffx/ops/pallas_kernels.py pallas_call sites)
 REPLACES = {
@@ -34,7 +48,14 @@ REPLACES = {
     "rb2d_residual": ("dffx_torch/csrc/rb2d.cu", "dffx/ops/pallas_kernels.py:329"),
     "srd_attention_residual": ("dffx_torch/csrc/srd_attention.cu",
                                "dffx/ops/pallas_kernels.py:823"),
+    "rb_of_chain": ("dffx_torch/csrc/rb_of.cu", "dffx/ops/pallas_kernels.py:726"),
+    "motion_head_conv_chain": ("dffx_torch/csrc/motion_head.cu",
+                               "dffx/ops/pallas_kernels.py:508"),
 }
+#: launches of each kernel in one forward of each network
+DFFNET_LAUNCHES = {"fm_conv_bn_relu": 1, "rb2d_residual": 1, "srd_attention_residual": 1}
+FLOWNET_LAUNCHES = {"rb_of_chain": 3, "motion_head_conv_chain": 1}
+E2E_LAUNCHES = {**DFFNET_LAUNCHES, **FLOWNET_LAUNCHES}
 
 
 def emit(obj) -> None:
@@ -64,7 +85,7 @@ def median_ms(fn, reps: int = REPS) -> float:
 
 
 def kernel_cases(rng, torch, tk, dev):
-    """(kernel name, shape tag, dtype, kernel fn, twin fn on fp32 inputs, args)."""
+    """(kernel name, shape tag, args); tags "e2e*" are the end-to-end path's shapes."""
     def bn(c):
         g = torch.from_numpy(rng.standard_normal(c).astype("float32"))
         b = torch.from_numpy(rng.standard_normal(c).astype("float32"))
@@ -79,24 +100,40 @@ def kernel_cases(rng, torch, tk, dev):
         return torch.from_numpy((rng.standard_normal(shape) * 0.1).astype("float32")).to(dev)
 
     path, b4, ddff, ragged = (1, N, H, W), (4, N, H, W), (1, N, 384, 576), (2, 3, 40, 72)
-    for tag, (b, n, h, w) in [("path", path), ("b4", b4), ("ddff", ddff), ("ragged", ragged)]:
+    e2e = (1, N, EH, EW)
+    for tag, (b, n, h, w) in [("path", path), ("b4", b4), ("ddff", ddff), ("ragged", ragged),
+                              ("e2e", e2e)]:
         yield "fm_conv_bn_relu", tag, (act((b, 3, n, h, w)), wt((8, 3, 1, 9, 9)), *bn(8))
     rb_shapes = [("path", path, 8), ("b4", b4, 8), ("ddff", ddff, 8), ("ragged", ragged, 8),
-                 ("ragged", ragged, 16), ("ragged", ragged, 32)]
+                 ("ragged", ragged, 16), ("ragged", ragged, 32), ("e2e", e2e, 8)]
     for tag, (b, n, h, w), c in rb_shapes:
         yield "rb2d_residual", f"{tag}_c{c}", (
             act((b, c, n, h, w)), wt((c, c, 1, 3, 3)), bn(c), wt((c, c, 1, 3, 3)), bn(c))
     for tag, (b, n, h, w), c in rb_shapes + [("n1", (1, 1, H, W), 8)]:
         yield "srd_attention_residual", f"{tag}_c{c}", (
             act((b, c, n, h, w)), wt((c, c, 3, 1, 1)), wt((c, c, 1, 1, 1)))
+    # FlowNetwork's three pyramid chains at their resolutions, then ragged
+    chains = [("e2e_fe1", (1, N, EH, EW), ((3, 8), (8, 8))),
+              ("e2e_fe2", (1, N, EH // 2, EW // 2), ((16, 16),)),
+              ("e2e_fe3", (1, N, EH // 4, EW // 4), ((32, 32),))]
+    chains += [(f"ragged_c{ch[-1][1]}", ragged, ch) for _, _, ch in chains]
+    for tag, (b, n, h, w), ch in chains:
+        yield "rb_of_chain", tag, (act((b, ch[0][0], n, h, w)), [
+            (wt((co, ci, 1, 3, 3)), bn(co), wt((co, co, 1, 3, 3)), bn(co), wt((co, ci, 1, 1, 1)))
+            for ci, co in ch])
+    for tag, (b, n, h, w) in [("e2e", e2e), ("ragged", ragged), ("tiny", (1, 2, 7, 5))]:
+        yield "motion_head_conv_chain", tag, (
+            act((b, 18, n, h, w)), wt((16, 18, 1, 3, 3)), bn(16), wt((16, 16, 1, 3, 3)), bn(16),
+            wt((16, 16, 1, 3, 3)), bn(16), wt((3, 16, 1, 3, 3)), wt((3,)))
 
 
 def phase_kernels(torch, tk, dev) -> dict:
-    """Each kernel against its twin, fp32 and bf16; returns the path-shape record."""
+    """Each kernel against its twin, fp32 and bf16; returns, per kernel, its
+    fp32 rows at the end-to-end path's shapes."""
     import numpy as np
 
     rng = np.random.default_rng(0)
-    path = {}
+    path = {name: [] for name in REPLACES}
     for name, tag, args in kernel_cases(rng, torch, tk, dev):
         kernel, twin = getattr(tk, name), getattr(tk, f"{name}_ref")
         for dtype in (torch.float32, torch.bfloat16):
@@ -120,9 +157,51 @@ def phase_kernels(torch, tk, dev) -> dict:
                    "ms": ms, "plain_ms": plain_ms}
             emit(row)
             check(err <= bound, f"{name} {tag} {dtype}: error {err} > {bound}")
-            if tag.startswith("path") and dtype == torch.float32:
-                path[name] = row
+            if tag.startswith("e2e") and dtype == torch.float32:
+                path[name].append(row)
     return path
+
+
+def check_launches(got: dict, want: dict, what: str) -> None:
+    """Exactly ``want`` launches of each kernel, 0 of every other."""
+    full = {name: want.get(name, 0) for name in REPLACES}
+    check(dict(got) == full, f"{what}: launches {dict(got)} != {full}")
+
+
+def max_errs(names, got, ref) -> dict:
+    return {n: float((g.float().cpu() - r.float().cpu()).abs().max())
+            for n, g, r in zip(names, got, ref)}
+
+
+def check_depth(torch, outs, fd, dtype, shape, phase, stack, launches) -> None:
+    """Finite depth heads of the expected shape, pred3 within the focus range."""
+    p3 = outs[3].float()
+    slack = (2.0 ** -8 if dtype == torch.bfloat16 else 1e-6) * float(fd.max())
+    finite = all(bool(torch.isfinite(t).all()) for t in outs)
+    in_range = bool((p3 >= fd.min() - slack).all() and (p3 <= fd.max() + slack).all())
+    emit({"phase": phase, "dtype": str(dtype).split(".")[1], "shape": stack,
+          "launches": launches, "finite": finite, "pred3_in_fd_range": in_range,
+          "pred3_min": float(p3.min()), "pred3_max": float(p3.max())})
+    check(finite and in_range, f"{phase} {dtype}: finite={finite} in_range={in_range}")
+    check(all(tuple(t.shape) == shape for t in outs), f"{phase} output shapes")
+
+
+def serve(torch, tf, reqs, smi, phase) -> int:
+    """Two warm-up requests (cuDNN algorithm choice, allocator), then the timed
+    ones; prints the rate and returns the number of forwards."""
+    for r in reqs[:2]:
+        tf(*r)
+    tf.total, tf.count = 0.0, 0
+    t0 = time.perf_counter()
+    for r in reqs[2:]:
+        o = tf(*r)
+        check(all(bool(torch.isfinite(t).all()) for t in o), f"{phase} output")
+    wall = time.perf_counter() - t0
+    emit({"phase": phase, "device": smi, "dtype": str(tf.dtype).split(".")[1],
+          "batch": int(reqs[0][0].shape[0]), "shape": list(reqs[0][0].shape[1:4]),
+          "requests": len(reqs) - 2, "stacks_per_s": 1.0 / tf.avg_time,
+          "avg_time_s": tf.avg_time, "wall_stacks_per_s": tf.count / wall})
+    return len(reqs)
 
 
 def golden_inputs(np):
@@ -169,7 +248,7 @@ def main() -> int:
     # 3. each kernel against its twin on the card
     path_rows = phase_kernels(torch, tk, dev)
 
-    # 4. goldens through the GPU forward, kernels included
+    # 4. DFFNet: goldens through the GPU forward, kernels included
     fs_np, fd_np = golden_inputs(np)
     net = load_params_auto(7, device=dev)
     tk.reset_launches()
@@ -182,70 +261,106 @@ def main() -> int:
     emit({"phase": "goldens", "max_abs_err": errs, "atol": GOLDEN_ATOL,
           "launches": dict(tk.launches)})
     check(max(errs.values()) <= GOLDEN_ATOL, f"goldens: {errs}")
-    check(all(v == 1 for v in tk.launches.values()), f"goldens launches {tk.launches}")
+    check_launches(tk.launches, DFFNET_LAUNCHES, "goldens")
 
-    # 5. the forward at the bench shape, fp32 and bf16, against the CPU twins
+    # 5. DFFNet at the bench shape, fp32 and bf16, against the CPU twins
     net = load_params_auto(0, device=dev)
     rng = np.random.default_rng(1)
     fs = torch.from_numpy(rng.uniform(-1, 1, (1, N, H, W, 3)).astype(np.float32))
     fd = torch.from_numpy((1 / np.linspace(0.2, 3.0, N, dtype=np.float32))[None])
     outs = {}
-    for i, dtype in enumerate((torch.float32, torch.bfloat16), start=1):
+    for dtype in (torch.float32, torch.bfloat16):
         tk.reset_launches()
         with torch.inference_mode():
             o = net(fs.to(dev, dtype), fd.to(dev))
         torch.cuda.synchronize()
-        check(all(v == 1 for v in tk.launches.values()), f"{dtype} launches {tk.launches}")
-        p3 = o[3].float()
-        slack = (2.0 ** -8 if dtype == torch.bfloat16 else 1e-6) * float(fd.max())
-        finite = all(bool(torch.isfinite(t).all()) for t in o)
-        in_range = bool((p3 >= fd.min() - slack).all() and (p3 <= fd.max() + slack).all())
-        emit({"phase": "forward", "dtype": str(dtype).split(".")[1], "shape": [1, N, H, W],
-              "launches": dict(tk.launches), "finite": finite, "pred3_in_fd_range": in_range,
-              "pred3_min": float(p3.min()), "pred3_max": float(p3.max())})
-        check(finite and in_range, f"forward {dtype}: finite={finite} in_range={in_range}")
-        check(all(tuple(t.shape) == (1, H, W) for t in o), "forward output shapes")
+        check_launches(tk.launches, DFFNET_LAUNCHES, f"forward {dtype}")
+        check_depth(torch, o, fd, dtype, (1, H, W), "forward", [1, N, H, W], dict(tk.launches))
         outs[dtype] = [t.float().cpu() for t in o]
     cpu_net = load_params_auto(0)
     with torch.inference_mode():
         cpu_outs = cpu_net(fs, fd)
     heads = ["mid", "pred1", "pred2", "pred3"]
-    cpu_err = {h: float((g - c).abs().max()) for h, g, c in zip(heads, outs[torch.float32],
-                                                                cpu_outs)}
-    bf16_err = {h: float((g - c).abs().max()) for h, g, c in zip(heads, outs[torch.bfloat16],
-                                                                 outs[torch.float32])}
+    cpu_err = max_errs(heads, outs[torch.float32], cpu_outs)
+    bf16_err = max_errs(heads, outs[torch.bfloat16], outs[torch.float32])
     emit({"phase": "forward_vs_cpu", "fp32_max_abs_err": cpu_err, "atol": FP32_ATOL,
           "bf16_vs_fp32_max_abs_err": bf16_err})
     check(max(cpu_err.values()) <= FP32_ATOL, f"GPU vs CPU forward: {cpu_err}")
 
-    # 6. serving: the main path, through TimedForward; counts from this run only
+    # 6. DFFNet serving through TimedForward; counts from this run only
     tk.reset_launches()
     forwards = 0
     for dtype in (torch.float32, torch.bfloat16):
         for batch, requests in ((1, 10), (4, 5)):
-            tf = TimedForward(net, dtype=dtype)
             reqs = [(rng.uniform(-1, 1, (batch, N, H, W, 3)).astype(np.float32),
                      np.tile(fd.numpy(), (batch, 1))) for _ in range(requests + 2)]
-            for r in reqs[:2]:  # warm-up: cuDNN algorithm choice, allocator
-                tf(*r)
-            tf.total, tf.count = 0.0, 0
-            t0 = time.perf_counter()
-            for r in reqs[2:]:
-                o = tf(*r)
-                check(all(bool(torch.isfinite(t).all()) for t in o), "serving output")
-            wall = time.perf_counter() - t0
-            forwards += len(reqs)
-            emit({"phase": "serving", "device": smi, "dtype": str(dtype).split(".")[1],
-                  "batch": batch, "requests": requests, "stacks_per_s": 1.0 / tf.avg_time,
-                  "avg_time_s": tf.avg_time, "wall_stacks_per_s": tf.count / wall})
+            forwards += serve(torch, TimedForward(net, dtype=dtype), reqs, smi, "serving")
     served = dict(tk.launches)
-    check(all(v == forwards for v in served.values()), f"serving launches {served} != {forwards}")
+    check_launches(served, {k: v * forwards for k, v in DFFNET_LAUNCHES.items()}, "serving")
+
+    # 7. end-to-end: goldens (seed 7, tests/test_golden_regression.py's fovs)
+    e2e = load_params_auto(7, device=dev, e2e=True)
+    fovs_np = np.linspace(1.0, 1.02, 10, dtype=np.float32)[None]
+    tk.reset_launches()
+    with torch.inference_mode():
+        o = e2e(*(torch.from_numpy(a).to(dev) for a in (fs_np, fd_np, fovs_np)))
+    torch.cuda.synchronize()
+    errs = {"e2e_pred3": float(np.abs(o[3].cpu().numpy() - gold["e2e_pred3"]).max()),
+            "e2e_warped_sum": float(np.abs(o[4].sum(dim=(2, 3)).cpu().numpy()
+                                           - gold["e2e_warped_sum"]).max())}
+    emit({"phase": "e2e_goldens", "max_abs_err": errs,
+          "atol": {"e2e_pred3": GOLDEN_ATOL, "e2e_warped_sum": WARPED_SUM_ATOL},
+          "launches": dict(tk.launches)})
+    check(errs["e2e_pred3"] <= GOLDEN_ATOL and errs["e2e_warped_sum"] <= WARPED_SUM_ATOL,
+          f"e2e goldens: {errs}")
+    check_launches(tk.launches, E2E_LAUNCHES, "e2e goldens")
+
+    # 8. end-to-end forward against the CPU at a medium shape; bf16 against fp32
+    e2e = load_params_auto(0, device=dev, e2e=True)
+    cpu_e2e = load_params_auto(0, e2e=True)
+    fd10 = torch.from_numpy((1 / np.linspace(0.2, 3.0, 10, dtype=np.float32))[None])
+    fovs = torch.from_numpy((1.0 + np.linspace(0.0, 0.03, 10)
+                             + rng.uniform(-0.005, 0.005, 10)).astype(np.float32)[None])
+    fs = torch.from_numpy(rng.uniform(-1, 1, (1, 10, MH, MW, 3)).astype(np.float32))
+    names = ["mid", "pred1", "pred2", "pred3", "warped", "motion"]
+    outs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tk.reset_launches()
+        with torch.inference_mode():
+            o = e2e(fs.to(dev, dtype), fd10.to(dev), fovs.to(dev))
+            motion = e2e.optical_flow_aggregation(fs.to(dev, dtype), fovs.to(dev))[1]
+        torch.cuda.synchronize()
+        check_launches(tk.launches, {k: v + FLOWNET_LAUNCHES.get(k, 0)
+                                     for k, v in E2E_LAUNCHES.items()}, f"e2e {dtype}")
+        check_depth(torch, o[:4], fd10, dtype, (1, MH, MW), "e2e_forward", [1, 10, MH, MW],
+                    dict(tk.launches))
+        outs[dtype] = [t.float().cpu() for t in (*o, motion)]
+    with torch.inference_mode():
+        cpu_o = cpu_e2e(fs, fd10, fovs)
+        cpu_motion = cpu_e2e.optical_flow_aggregation(fs, fovs)[1]
+    cpu_err = max_errs(names, outs[torch.float32], (*cpu_o, cpu_motion))
+    bf16_err = max_errs(names, outs[torch.bfloat16], outs[torch.float32])
+    emit({"phase": "e2e_forward_vs_cpu", "shape": [1, 10, MH, MW], "fp32_max_abs_err": cpu_err,
+          "atol": FP32_ATOL, "bf16_vs_fp32_max_abs_err": bf16_err,
+          "motion_abs_max_fp32": outs[torch.float32][5].abs().amax(dim=(0, 1)).tolist()})
+    check(max(cpu_err.values()) <= FP32_ATOL, f"e2e GPU vs CPU forward: {cpu_err}")
+
+    # 9. end-to-end serving at the real-scene shape; counts from this run only
+    tk.reset_launches()
+    forwards = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        reqs = [(rng.uniform(-1, 1, (1, 10, EH, EW, 3)).astype(np.float32), fd10.numpy(),
+                 fovs.numpy()) for _ in range(5 + 2)]
+        forwards += serve(torch, TimedForward(e2e, dtype=dtype), reqs, smi, "e2e_serving")
+    served = dict(tk.launches)
+    check_launches(served, {k: v * forwards for k, v in E2E_LAUNCHES.items()}, "e2e serving")
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": REPLACES[name][0],
          "replaces": REPLACES[name][1], "launches": served[name],
-         "max_abs_err": path_rows[name]["max_abs_err"], "ms": path_rows[name]["ms"],
-         "plain_ms": path_rows[name]["plain_ms"]} for name in REPLACES]})
+         "max_abs_err": max(r["max_abs_err"] for r in path_rows[name]),
+         "ms": sum(r["ms"] for r in path_rows[name]),
+         "plain_ms": sum(r["plain_ms"] for r in path_rows[name])} for name in REPLACES]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

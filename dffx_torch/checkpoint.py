@@ -8,7 +8,8 @@ the type of module that owns each weight (the inverse of
 
 * Conv3d weight           ``(kd, kh, kw, Cin, Cout)`` -> ``(Cout, Cin, kd, kh, kw)``
 * ConvTranspose3d weight  ``(kd, kh, kw, Cin, Cout)`` -> ``(Cin, Cout, kd, kh, kw)``
-* BN tensors pass through; ``num_batches_tracked`` becomes int64.
+* conv biases (the FlowNetwork heads' last conv) and BN tensors pass through;
+  ``num_batches_tracked`` becomes int64.
 """
 
 from __future__ import annotations
@@ -50,7 +51,8 @@ def load_jax_params(module: nn.Module, params: Mapping[str, np.ndarray]) -> nn.M
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """A reference ``check_point.pth`` as a state dict for ``Network``,
-    ``module.`` prefixes (the DataParallel save flavour) stripped."""
+    """A reference ``check_point.pth`` as a state dict for ``Network`` or
+    ``E2ENetwork``, ``module.`` prefixes (the DataParallel save flavour)
+    stripped."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     return {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}

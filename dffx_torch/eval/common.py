@@ -8,17 +8,19 @@ import time
 from typing import Union
 
 import torch
+from torch import nn
 
 from dffx_torch.checkpoint import load_jax_params, load_torch_checkpoint
-from dffx_torch.models import Network, init_params
+from dffx_torch.models import E2ENetwork, Network, e2e_init_params, init_params
 
 
-def load_params_auto(source: Union[str, int], *, device="cpu") -> Network:
-    """An eval-mode ``Network`` on ``device`` with weights from a reference
-    ``.pth`` path, or from an int seed (``init_params(seed)``)."""
-    net = Network()
+def load_params_auto(source: Union[str, int], *, device="cpu", e2e: bool = False) -> nn.Module:
+    """An eval-mode ``Network`` (depth only) or, with ``e2e``, ``E2ENetwork``
+    (alignment + depth) on ``device``, with weights from a reference ``.pth``
+    path or from an int seed (``init_params`` / ``e2e_init_params``)."""
+    net = E2ENetwork() if e2e else Network()
     if isinstance(source, int):
-        load_jax_params(net, init_params(source))
+        load_jax_params(net, (e2e_init_params if e2e else init_params)(source))
     elif os.path.isfile(source):
         net.load_state_dict(load_torch_checkpoint(source))
     else:
@@ -32,30 +34,31 @@ class TimedForward:
     CUDA device the time comes from CUDA events on the current stream.
 
     ``avg_time`` is seconds per sample, as the reference's ``AVG_time``: with a
-    batch of B, one call adds B samples."""
+    batch of B, one call adds B samples.  Inputs after the focus distances
+    (``E2ENetwork``'s ``fovs``) go to the model as fp32 tensors."""
 
-    def __init__(self, model: Network, *, dtype: torch.dtype = torch.float32):
+    def __init__(self, model: nn.Module, *, dtype: torch.dtype = torch.float32):
         self.model = model.eval()
         self.dtype = dtype
         self.device = next(model.parameters()).device
         self.total = 0.0
         self.count = 0
 
-    def __call__(self, fs, focus_dists):
+    def __call__(self, fs, focus_dists, *extra):
         fs = torch.as_tensor(fs).to(self.device, self.dtype)
-        fd = torch.as_tensor(focus_dists).to(self.device, torch.float32)
+        rest = [torch.as_tensor(a).to(self.device, torch.float32) for a in (focus_dists, *extra)]
         with torch.inference_mode():
             if self.device.type == "cuda":
                 stream = torch.cuda.current_stream(self.device)
                 start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                 start.record(stream)
-                outs = self.model(fs, fd)
+                outs = self.model(fs, *rest)
                 end.record(stream)
                 end.synchronize()
                 seconds = start.elapsed_time(end) / 1e3
             else:
                 t0 = time.perf_counter()
-                outs = self.model(fs, fd)
+                outs = self.model(fs, *rest)
                 seconds = time.perf_counter() - t0
         self.total += seconds
         self.count += int(fs.shape[0])

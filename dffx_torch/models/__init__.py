@@ -1,5 +1,14 @@
-"""dffx_torch.models — DFFNet (eval) as ``nn.Module``s keyed like the reference."""
+"""dffx_torch.models — DFFNet and the end-to-end network (eval) as
+``nn.Module``s keyed like the reference."""
 
+from dffx_torch.models.alignnet import (
+    E2ENetwork,
+    FlowNetwork,
+    MotionHead,
+    OFLevel,
+    ResnetBlock2dOF,
+    e2e_init_params,
+)
 from dffx_torch.models.dffnet import DFFNet, Hourglass, HourglassUp, Network, init_params
 from dffx_torch.models.layers import EFD, SRD, FMModule, ResnetBlock2d, init_module_params
 
@@ -9,6 +18,12 @@ __all__ = [
     "HourglassUp",
     "Network",
     "init_params",
+    "E2ENetwork",
+    "FlowNetwork",
+    "MotionHead",
+    "OFLevel",
+    "ResnetBlock2dOF",
+    "e2e_init_params",
     "EFD",
     "SRD",
     "FMModule",

@@ -111,6 +111,9 @@ class HourglassUp(nn.Module):
 class DFFNet(nn.Module):
     """Focal stack -> (mid_out, pred1, pred2, pred3) depth heads."""
 
+    #: the reference's MSRA init loop covers DFFNet's convs (init_module_params)
+    msra_init = True
+
     def __init__(self):
         super().__init__()
         self.FM_measure = FMModule()

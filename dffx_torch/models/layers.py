@@ -1,16 +1,18 @@
-"""Building blocks of DFFNet as ``nn.Module``s, eval mode only.
+"""Building blocks of DFFNet and FlowNetwork as ``nn.Module``s, eval mode only.
 
 Submodule names and indices follow the reference constructors
-(`Depth_Estimation_Test/Depth_Estimation_Network.py`), so every
+(`Depth_Estimation_Test/Depth_Estimation_Network.py`,
+`End_to_End/End_to_End.py`), so every
 ``state_dict`` key equals the reference key and the JAX package's param key.
 Parameters stay fp32; convs run in the activation dtype (weights are cast at
 use, as ``dffx`` casts its kernels), and BN always normalises with the running
 statistics.  Activations are ``(B, C, N, H, W)``.
 
 ``init_module_params(Network(), seed)`` reproduces
-``dffx.models.init_params(network_specs(), seed)`` bit for bit: the same
-per-kind distributions drawn from one ``np.random.default_rng(seed)`` in
-sorted-key order, in the JAX package's DHWIO weight layout (load it with
+``dffx.models.init_params(network_specs(), seed)`` bit for bit (and the same
+for ``E2ENetwork`` and ``e2e_network_specs``): the same per-kind
+distributions drawn from one ``np.random.default_rng(seed)`` in sorted-key
+order, in the JAX package's DHWIO weight layout (load it with
 ``dffx_torch.checkpoint.load_jax_params``).
 """
 
@@ -28,15 +30,15 @@ from dffx_torch.ops.kernels import fm_conv_bn_relu, rb2d_residual, srd_attention
 
 
 class Conv3d(nn.Conv3d):
-    """Bias-free ``nn.Conv3d`` that runs in the input's dtype."""
+    """``nn.Conv3d`` that runs in the input's dtype; bias-free unless asked."""
 
-    def __init__(self, cin, cout, k, *, stride=1, padding=0, dilation=1):
+    def __init__(self, cin, cout, k, *, stride=1, padding=0, dilation=1, bias=False):
         super().__init__(cin, cout, k, stride=stride, padding=padding,
-                         dilation=dilation, bias=False)
+                         dilation=dilation, bias=bias)
 
     def forward(self, x):
-        return conv3d(x, self.weight, stride=self.stride, padding=self.padding,
-                      dilation=self.dilation)
+        return conv3d(x, self.weight, bias=self.bias, stride=self.stride,
+                      padding=self.padding, dilation=self.dilation)
 
 
 class ConvTranspose3d(nn.ConvTranspose3d):
@@ -171,17 +173,30 @@ def _dhwio(shape, transposed: bool) -> tuple:
 
 def init_module_params(module: nn.Module, seed: int = 0) -> Dict[str, np.ndarray]:
     """Fresh parameters for ``module``'s state_dict keys, in the JAX package's
-    layout and draw: DFF_net convs ``N(0, sqrt(2 / (prod(k) * Cout)))`` (the
-    reference's init loop, `Depth_Estimation_Network.py:59-73`), deconvs
-    ``U(+-1/sqrt(Cout * prod(k)))``, BN weight/var 1, bias/mean 0."""
+    layout and draw.  Convs inside a module that sets ``msra_init`` (DFFNet,
+    whose reference constructor runs an init loop over its own modules,
+    `Depth_Estimation_Network.py:59-73`) draw ``N(0, sqrt(2 / (prod(k) *
+    Cout)))``; every other conv keeps torch's default ``U(+-1/sqrt(Cin *
+    prod(k)))`` and its bias ``U(+-1/sqrt(Cin * prod(k)))``; deconvs draw
+    ``U(+-1/sqrt(Cout * prod(k)))``; BN weight/var 1, bias/mean 0."""
+    msra_roots = [f"{name}." if name else "" for name, m in module.named_modules()
+                  if getattr(m, "msra_init", False)]
     kinds = {}
     for name, m in module.named_modules():
         pfx = f"{name}." if name else ""
         if isinstance(m, (nn.Conv3d, nn.ConvTranspose3d)):
-            if m.bias is not None:
-                raise ValueError(f"{name}: conv biases are not part of DFFNet")
             tr = isinstance(m, nn.ConvTranspose3d)
-            kinds[pfx + "weight"] = ("deconv" if tr else "conv", _dhwio(m.weight.shape, tr))
+            if tr:
+                if m.bias is not None:
+                    raise ValueError(f"{name}: deconv biases are not part of the model")
+                kind = "deconv"
+            else:
+                kind = ("conv_msra" if any(pfx.startswith(r) for r in msra_roots)
+                        else "conv_default")
+            kinds[pfx + "weight"] = (kind, _dhwio(m.weight.shape, tr))
+            if m.bias is not None:
+                fan_in = math.prod(m.weight.shape[1:])
+                kinds[pfx + "bias"] = ("bias", tuple(m.bias.shape), fan_in)
         elif isinstance(m, nn.BatchNorm3d):
             c = (m.num_features,)
             kinds.update({pfx + "weight": ("one", c), pfx + "bias": ("zero", c),
@@ -190,10 +205,17 @@ def init_module_params(module: nn.Module, seed: int = 0) -> Dict[str, np.ndarray
                           pfx + "num_batches_tracked": ("count", ())})
     rng = np.random.default_rng(seed)
     out: Dict[str, np.ndarray] = {}
-    for key, (kind, shape) in sorted(kinds.items()):
-        if kind == "conv":
+    for key, (kind, shape, *fan_in) in sorted(kinds.items()):
+        if kind == "conv_msra":
             *k, _cin, cout = shape
             v = rng.normal(0.0, math.sqrt(2.0 / (math.prod(k) * cout)), size=shape)
+        elif kind == "conv_default":
+            *k, cin, _cout = shape
+            bound = 1.0 / math.sqrt(cin * math.prod(k))
+            v = rng.uniform(-bound, bound, size=shape)
+        elif kind == "bias":
+            bound = 1.0 / math.sqrt(fan_in[0])
+            v = rng.uniform(-bound, bound, size=shape)
         elif kind == "deconv":
             *k, _cin, cout = shape
             bound = 1.0 / math.sqrt(cout * math.prod(k))

@@ -5,8 +5,9 @@
 * ``max_pool3d`` / ``avg_pool3d`` — (1,k,k) pooling
 * ``upsample_bilinear``         — F.upsample(mode='bilinear'), align_corners=False
 * ``softplus_argmax``           — softplus -> normalise over N -> soft-argmax
-* ``kernels``                   — the three full-res focus-measure CUDA kernels
-                                  and their plain twins
+* ``pool.adaptive_avg_pool_focus`` — the motion heads' AdaptiveAvgPool3d((10,1,1))
+* ``warp``                      — the separable per-slice affine warp (E2E)
+* ``kernels``                   — the five CUDA kernels and their plain twins
 """
 
 from dffx_torch.ops.conv import conv3d, deconv3d

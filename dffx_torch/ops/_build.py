@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels from ``dffx_torch/csrc`` and load them.
 
 ``nvcc`` compiles every ``.cu`` source into one shared library with a plain
-C interface for ``sm_90a`` (Hopper), loaded with ``ctypes``.  The library
+C interface for ``sm_90a`` (Hopper), loaded with ``ctypes``: one compile per
+source, all started together, then one link.  The library
 lands in ``build/kernels/`` at the repository root (listed in
 ``.gitignore``), named by a hash of the sources, so an edited source builds
 a new library at the first launch after the edit.  There is no fallback: a
@@ -19,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -26,7 +28,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -38,6 +40,10 @@ SIGNATURES = {
     "dffx_rb2d_residual": [_P] * 8 + [_I] * 6 + [_P],
     # f, wn, w1, y, B, C, N, H, W, dtype, stream
     "dffx_srd_attention_residual": [_P] * 4 + [_I] * 6 + [_P],
+    # x, params, y, B, Cin, Cout, nblocks, N, H, W, dtype, stream
+    "dffx_rb_of_chain": [_P] * 3 + [_I] * 8 + [_P],
+    # x, params, y, B, Cin, C, N, H, W, dtype, stream
+    "dffx_motion_head_conv_chain": [_P] * 3 + [_I] * 7 + [_P],
 }
 
 
@@ -70,6 +76,25 @@ def find_nvcc() -> str:
     return found
 
 
+def _compile_all(nvcc: str, srcs: list[Path], out_dir: Path) -> tuple[list[Path], str]:
+    """One ``nvcc -c`` per source, all running at once; raises with every failure."""
+    objs = [out_dir / f"{src.stem}.o" for src in srcs]
+    procs = []
+    for src, obj in zip(srcs, objs):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        procs.append((src, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, cmd, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    if failed:
+        raise BuildError("\n".join(failed))
+    return objs, "".join(logs)
+
+
 def build() -> tuple[Path, float, str]:
     """Compile the library unless it exists; returns (path, seconds, nvcc log)."""
     out = library_path()
@@ -78,18 +103,20 @@ def build() -> tuple[Path, float, str]:
         return out, 0.0, log_path.read_text() if log_path.is_file() else ""
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in sources() if s.suffix == ".cu")]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise BuildError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-    log_path.write_text(log)
-    os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
-    return out, seconds, log
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        objs, log = _compile_all(nvcc, [s for s in sources() if s.suffix == ".cu"],
+                                 Path(tmp_dir))
+        tmp = Path(tmp_dir) / out.name
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+               *(str(o) for o in objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise BuildError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                             f"{proc.stdout}{proc.stderr}")
+        log_path.write_text(log)
+        os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
+    return out, time.perf_counter() - t0, log
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,7 +1,7 @@
 """3D convolution and transposed convolution in ``(B, C, N, H, W)``.
 
 The reference's convs and deconvs (`Depth_Estimation_Network.py:286-289`,
-`:41`, `:195`) are plain ``F.conv3d`` / ``F.conv_transpose3d`` calls; the JAX
+`:41`, `:195`; `End_to_End/End_to_End.py:33-61, :135-145`) are plain ``F.conv3d`` / ``F.conv_transpose3d`` calls; the JAX
 package left them to XLA, and the port leaves them to cuDNN.  Weights are in
 torch layout and may be kept in fp32: they are cast to the activation dtype
 here, as ``dffx`` casts its DHWIO kernels.
@@ -13,11 +13,12 @@ import torch
 import torch.nn.functional as F
 
 
-def conv3d(x: torch.Tensor, w: torch.Tensor, *, stride=1, padding=0,
+def conv3d(x: torch.Tensor, w: torch.Tensor, *, bias=None, stride=1, padding=0,
            dilation=1) -> torch.Tensor:
-    """Bias-free ``F.conv3d``: x ``(B, Cin, N, H, W)``, w ``(Cout, Cin, kd, kh, kw)``."""
-    return F.conv3d(x, w.to(x.dtype), stride=stride, padding=padding,
-                    dilation=dilation)
+    """``F.conv3d``: x ``(B, Cin, N, H, W)``, w ``(Cout, Cin, kd, kh, kw)``, an
+    optional bias ``(Cout,)`` (the FlowNetwork heads' last conv)."""
+    return F.conv3d(x, w.to(x.dtype), None if bias is None else bias.to(x.dtype),
+                    stride=stride, padding=padding, dilation=dilation)
 
 
 def deconv3d(x: torch.Tensor, w: torch.Tensor, *, stride=(1, 2, 2), padding=1,

@@ -1,12 +1,18 @@
-"""The full-resolution focus-measure kernels: wrappers and plain twins.
+"""The port's hand-written CUDA kernels: wrappers and plain twins.
 
-Three hand-written CUDA kernels (``dffx_torch/csrc``) replace the JAX
-package's Pallas kernels on DFFNet's eval path, chained conv -> rb2d ->
-attention as in ``dffx/models/layers.py::_fm_fused_chain``:
+Five kernels (``dffx_torch/csrc``) replace the JAX package's Pallas kernels.
+Three are DFFNet's full-resolution focus-measure chain, chained conv -> rb2d
+-> attention as in ``dffx/models/layers.py::_fm_fused_chain``:
 
 * ``fm_conv_bn_relu``        Conv3d(3->8, (1,9,9), pad (0,8,8), dil (1,2,2)) + BN + ReLU
 * ``rb2d_residual``          relu(x + BN2(conv2(relu(BN1(conv1 x))))), (1,3,3) convs
 * ``srd_attention_residual`` f + relu(W1 . relu(Wn . [f(n-1); f(n); f(n+1)]))
+
+Two are the FlowNetwork alignment front end's (``dffx/models/alignnet.py``):
+
+* ``rb_of_chain``            K stride-1 blocks relu(Ws . x + BN2(conv2(relu(BN1(conv1 x)))))
+* ``motion_head_conv_chain`` four (1,3,3) convs 18->16->16->16->3, BN+ReLU after
+                             the first three, a bias on the last
 
 Each takes and returns torch's ``(B, C, N, H, W)`` layout, fp32 or bf16
 activations; weights are torch-layout ``(Cout, Cin, kd, kh, kw)``, and eval
@@ -19,7 +25,7 @@ counts kernel launches per wrapper, so a run can show it went through them.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,17 +41,28 @@ __all__ = [
     "rb2d_residual_ref",
     "srd_attention_residual",
     "srd_attention_residual_ref",
+    "rb_of_chain",
+    "rb_of_chain_ref",
+    "motion_head_conv_chain",
+    "motion_head_conv_chain_ref",
     "launches",
     "reset_launches",
 ]
 
 Affine = Tuple[torch.Tensor, torch.Tensor]
+#: one resnet_block_2d_OF: (w1, aff1, w2, aff2, w_shortcut)
+OFBlock = Tuple[torch.Tensor, Affine, torch.Tensor, Affine, torch.Tensor]
 
 #: kernel launches per wrapper since the last ``reset_launches()``
-launches = {"fm_conv_bn_relu": 0, "rb2d_residual": 0, "srd_attention_residual": 0}
+launches = {"fm_conv_bn_relu": 0, "rb2d_residual": 0, "srd_attention_residual": 0,
+            "rb_of_chain": 0, "motion_head_conv_chain": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # DFFX_DTYPE_* in csrc/common.cuh
 _KERNEL_CHANNELS = (8, 16, 32)
+#: the (cin, cout) chains rb_of.cu is built for: FlowNetwork's three levels
+_RB_OF_CHAINS = (((3, 8), (8, 8)), ((16, 16),), ((32, 32),))
+#: the (cin, mid) widths motion_head.cu is built for: the full-res conv3 head
+_MOTION_HEAD_WIDTHS = ((18, 16),)
 
 
 def reset_launches() -> None:
@@ -89,6 +106,11 @@ def _cuda_args(x: torch.Tensor, c_ok=None):
     if x.shape[0] * x.shape[2] > 65535:
         raise ValueError("B * N is a grid dimension of the launch: at most 65535")
     return _build.library(), torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _packed(x: torch.Tensor, tensors) -> torch.Tensor:
+    """Weights and affines flattened, in order, into one fp32 buffer on x's card."""
+    return torch.cat([_param(t, x).reshape(-1) for t in tensors])
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -211,4 +233,117 @@ def srd_attention_residual(f: torch.Tensor, wn: torch.Tensor, w1: torch.Tensor
             b, c, n, h, wd, _DTYPES[f.dtype], stream)
     _raise_on(err, "srd_attention_residual")
     launches["srd_attention_residual"] += 1
+    return y
+
+
+# --------------------------------------------------------------------------
+# rb_of_chain
+# --------------------------------------------------------------------------
+
+
+def rb_of_chain_ref(x, blocks: Sequence[OFBlock]):
+    """Plain twin of ``rb_of_chain``."""
+    for w1, aff1, w2, aff2, ws in blocks:
+        r = F.conv3d(x, w1.to(x.dtype), padding=(0, 1, 1)).float()
+        r = torch.relu(r * _view(aff1[0].float()) + _view(aff1[1].float())).to(x.dtype)
+        r = F.conv3d(r, w2.to(x.dtype), padding=(0, 1, 1)).float()
+        r = r * _view(aff2[0].float()) + _view(aff2[1].float())
+        x = torch.relu(F.conv3d(x, ws.to(x.dtype)).float() + r).to(x.dtype)
+    return x
+
+
+def rb_of_chain(x: torch.Tensor, blocks: Sequence[OFBlock]) -> torch.Tensor:
+    """Consecutive stride-1 ``resnet_block_2d_OF``s in one launch.
+
+    x ``(B, Cin, N, H, W)``; per block w1 ``(Cout, Cin, 1, 3, 3)``, w2
+    ``(Cout, Cout, 1, 3, 3)``, the 1x1 projection shortcut ws ``(Cout, Cin, 1,
+    1, 1)``, all bias-free, and aff = fp32 (scale, shift) ``(Cout,)``.  The
+    kernel takes the chains (3->8, 8->8), (16->16) and (32->32) and any
+    H, W >= 1; the twin takes any chain."""
+    _check_act(x)
+    if not blocks:
+        raise ValueError("rb_of_chain needs at least one block")
+    chans, cin = [], x.shape[1]
+    for k, (w1, aff1, w2, aff2, ws) in enumerate(blocks):
+        cout = w1.shape[0]
+        _check_param(w1, (cout, cin, 1, 3, 3), f"block {k} w1")
+        _check_param(w2, (cout, cout, 1, 3, 3), f"block {k} w2")
+        _check_param(ws, (cout, cin, 1, 1, 1), f"block {k} ws")
+        for name, t in (("aff1", aff1), ("aff2", aff2)):
+            _check_param(t[0], (cout,), f"block {k} {name} scale")
+            _check_param(t[1], (cout,), f"block {k} {name} shift")
+        chans.append((cin, cout))
+        cin = cout
+    if x.device.type == "cpu":
+        return rb_of_chain_ref(x, blocks)
+    if x.device.type != "cuda":
+        raise _unsupported(x)
+    if tuple(chans) not in _RB_OF_CHAINS:
+        raise ValueError(f"kernel built for chains {_RB_OF_CHAINS}, got {tuple(chans)}")
+    lib, stream = _cuda_args(x)
+    b, _, n, h, wd = x.shape
+    params = _packed(x, [t for w1, aff1, w2, aff2, ws in blocks
+                         for t in (w1, *aff1, w2, *aff2, ws)])
+    y = torch.empty((b, cin, n, h, wd), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.dffx_rb_of_chain(
+            x.data_ptr(), params.data_ptr(), y.data_ptr(),
+            b, chans[0][0], cin, len(blocks), n, h, wd, _DTYPES[x.dtype], stream)
+    _raise_on(err, "rb_of_chain")
+    launches["rb_of_chain"] += 1
+    return y
+
+
+# --------------------------------------------------------------------------
+# motion_head_conv_chain
+# --------------------------------------------------------------------------
+
+
+def motion_head_conv_chain_ref(x, w0, aff0: Affine, w1, aff1: Affine, w2, aff2: Affine,
+                               w3, bias3):
+    """Plain twin of ``motion_head_conv_chain``."""
+    y = x
+    for w, (scale, shift) in ((w0, aff0), (w1, aff1), (w2, aff2)):
+        y = F.conv3d(y, w.to(x.dtype), padding=(0, 1, 1)).float()
+        y = torch.relu(y * _view(scale.float()) + _view(shift.float())).to(x.dtype)
+    y = F.conv3d(y, w3.to(x.dtype), padding=(0, 1, 1)).float()
+    return (y + _view(bias3.float())).to(x.dtype)
+
+
+def motion_head_conv_chain(x: torch.Tensor, w0: torch.Tensor, aff0: Affine,
+                           w1: torch.Tensor, aff1: Affine, w2: torch.Tensor, aff2: Affine,
+                           w3: torch.Tensor, bias3: torch.Tensor) -> torch.Tensor:
+    """The eval motion head before its pooling: three (1,3,3) pad-1 conv + BN
+    + ReLU and a biased (1,3,3) conv to 3 channels.
+
+    x ``(B, Cin, N, H, W)``; w0 ``(C, Cin, 1, 3, 3)``; w1/w2 ``(C, C, 1, 3,
+    3)``; w3 ``(3, C, 1, 3, 3)``; aff = fp32 (scale, shift) ``(C,)``; bias3
+    ``(3,)``.  Returns ``(B, 3, N, H, W)``.  The kernel takes (Cin, C) =
+    (18, 16), the full-resolution conv3 head, and any H, W >= 1."""
+    _check_act(x)
+    cin, c = x.shape[1], w0.shape[0]
+    _check_param(w0, (c, cin, 1, 3, 3), "w0")
+    _check_param(w1, (c, c, 1, 3, 3), "w1")
+    _check_param(w2, (c, c, 1, 3, 3), "w2")
+    _check_param(w3, (3, c, 1, 3, 3), "w3")
+    _check_param(bias3, (3,), "bias3")
+    for name, t in (("aff0", aff0), ("aff1", aff1), ("aff2", aff2)):
+        _check_param(t[0], (c,), f"{name} scale")
+        _check_param(t[1], (c,), f"{name} shift")
+    if x.device.type == "cpu":
+        return motion_head_conv_chain_ref(x, w0, aff0, w1, aff1, w2, aff2, w3, bias3)
+    if x.device.type != "cuda":
+        raise _unsupported(x)
+    if (cin, c) not in _MOTION_HEAD_WIDTHS:
+        raise ValueError(f"kernel built for (Cin, C) in {_MOTION_HEAD_WIDTHS}, got {(cin, c)}")
+    lib, stream = _cuda_args(x)
+    b, _, n, h, wd = x.shape
+    params = _packed(x, (w0, *aff0, w1, *aff1, w2, *aff2, w3, bias3))
+    y = torch.empty((b, 3, n, h, wd), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.dffx_motion_head_conv_chain(
+            x.data_ptr(), params.data_ptr(), y.data_ptr(),
+            b, cin, c, n, h, wd, _DTYPES[x.dtype], stream)
+    _raise_on(err, "motion_head_conv_chain")
+    launches["motion_head_conv_chain"] += 1
     return y

@@ -11,11 +11,16 @@ import numpy as np
 import pytest
 import torch
 
-from dffx_torch.models import Network
+from dffx_torch.models import E2ENetwork, Network
 from dffx_torch.ops import kernels as tk
 
 pytestmark = pytest.mark.gpu
 SHAPES = [(1, 3, 64, 96), (2, 1, 40, 72), (1, 2, 7, 5)]  # (b, n, h, w); ragged edges
+DFFNET_KERNELS = ("fm_conv_bn_relu", "rb2d_residual", "srd_attention_residual")
+#: launches of each kernel in one E2E forward: three pyramid chains, one head
+E2E_LAUNCHES = {"fm_conv_bn_relu": 1, "rb2d_residual": 1, "srd_attention_residual": 1,
+                "rb_of_chain": 3, "motion_head_conv_chain": 1}
+CHAINS = [((3, 8), (8, 8)), ((16, 16),), ((32, 32),)]
 
 
 @pytest.fixture
@@ -74,6 +79,39 @@ def test_rb2d_and_attention_match_twins(cuda, rng, b, n, h, w, c):
     assert tk.launches["rb2d_residual"] == 1 and tk.launches["srd_attention_residual"] == 1
 
 
+def _chain_args(rng, b, n, h, w, chans, dev):
+    x = _act(rng, (b, chans[0][0], n, h, w), dev)
+    return x, [(_wt(rng, (co, ci, 1, 3, 3), dev), _aff(rng, co, dev),
+                _wt(rng, (co, co, 1, 3, 3), dev), _aff(rng, co, dev),
+                _wt(rng, (co, ci, 1, 1, 1), dev)) for ci, co in chans]
+
+
+def _head_args(rng, b, n, h, w, dev):
+    return (_act(rng, (b, 18, n, h, w), dev), _wt(rng, (16, 18, 1, 3, 3), dev), _aff(rng, 16, dev),
+            _wt(rng, (16, 16, 1, 3, 3), dev), _aff(rng, 16, dev),
+            _wt(rng, (16, 16, 1, 3, 3), dev), _aff(rng, 16, dev),
+            _wt(rng, (3, 16, 1, 3, 3), dev), _wt(rng, (3,), dev))
+
+
+@pytest.mark.parametrize("chans", CHAINS, ids=["fe1_pair", "c16", "c32"])
+@pytest.mark.parametrize("b,n,h,w", SHAPES)
+def test_rb_of_chain_matches_twin(cuda, rng, b, n, h, w, chans):
+    x, blocks = _chain_args(rng, b, n, h, w, chans, cuda)
+    got = tk.rb_of_chain(x, blocks)
+    torch.cuda.synchronize()
+    assert tk.launches["rb_of_chain"] == 1
+    torch.testing.assert_close(got, tk.rb_of_chain_ref(x, blocks), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("b,n,h,w", SHAPES)
+def test_motion_head_conv_chain_matches_twin(cuda, rng, b, n, h, w):
+    args = _head_args(rng, b, n, h, w, cuda)
+    got = tk.motion_head_conv_chain(*args)
+    torch.cuda.synchronize()
+    assert tk.launches["motion_head_conv_chain"] == 1
+    torch.testing.assert_close(got, tk.motion_head_conv_chain_ref(*args), atol=1e-4, rtol=0)
+
+
 def test_bf16_rounds_only_the_output(cuda, rng):
     """bf16 in, fp32 inside: within half a bf16 ulp (< 2^-8 |max|) of the fp32 twin."""
     x = _act(rng, (1, 3, 2, 40, 72), cuda).bfloat16()
@@ -83,6 +121,15 @@ def test_bf16_rounds_only_the_output(cuda, rng):
     ref = tk.fm_conv_bn_relu_ref(x.float(), *args)
     bound = 2.0 ** -8 * ref.abs().max().item() + 1e-4
     assert (got.float() - ref).abs().max().item() <= bound
+    x, blocks = _chain_args(rng, 1, 2, 40, 72, CHAINS[0], cuda)
+    got = tk.rb_of_chain(x.bfloat16(), blocks)
+    ref = tk.rb_of_chain_ref(x.bfloat16().float(), blocks)
+    assert got.dtype == torch.bfloat16
+    assert (got.float() - ref).abs().max().item() <= 2.0 ** -8 * ref.abs().max().item() + 1e-4
+    x, *args = _head_args(rng, 1, 2, 40, 72, cuda)
+    got = tk.motion_head_conv_chain(x.bfloat16(), *args)
+    ref = tk.motion_head_conv_chain_ref(x.bfloat16().float(), *args)
+    assert (got.float() - ref).abs().max().item() <= 2.0 ** -8 * ref.abs().max().item() + 1e-4
 
 
 def test_wrappers_refuse_non_contiguous_and_unbuilt_widths(cuda, rng):
@@ -95,6 +142,15 @@ def test_wrappers_refuse_non_contiguous_and_unbuilt_widths(cuda, rng):
     with pytest.raises(ValueError, match="C in"):
         tk.srd_attention_residual(x12, _wt(rng, (12, 12, 3, 1, 1), cuda),
                                   _wt(rng, (12, 12, 1, 1, 1), cuda))
+    x, blocks = _chain_args(rng, 1, 2, 16, 16, ((8, 16),), cuda)
+    with pytest.raises(ValueError, match="chains"):
+        tk.rb_of_chain(x, blocks)
+    with pytest.raises(ValueError, match=r"\(Cin, C\)"):  # the conv2 head's width
+        tk.motion_head_conv_chain(
+            _act(rng, (1, 34, 2, 16, 16), cuda), _wt(rng, (32, 34, 1, 3, 3), cuda),
+            _aff(rng, 32, cuda), _wt(rng, (32, 32, 1, 3, 3), cuda), _aff(rng, 32, cuda),
+            _wt(rng, (32, 32, 1, 3, 3), cuda), _aff(rng, 32, cuda),
+            _wt(rng, (3, 32, 1, 3, 3), cuda), _wt(rng, (3,), cuda))
     assert tk.launches == dict.fromkeys(tk.launches, 0)
 
 
@@ -108,6 +164,23 @@ def test_network_on_the_card_matches_cpu(cuda, rng):
     with torch.inference_mode():
         got = net(fs.to(cuda), fd.to(cuda))
         ref = load_params_auto(0)(fs, fd)
-    assert tk.launches == dict.fromkeys(tk.launches, 1)
+    assert {k: tk.launches[k] for k in DFFNET_KERNELS} == dict.fromkeys(DFFNET_KERNELS, 1)
+    assert tk.launches["rb_of_chain"] == tk.launches["motion_head_conv_chain"] == 0
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.cpu(), r, atol=1e-4, rtol=0)
+
+
+def test_e2e_network_on_the_card_matches_cpu(cuda, rng):
+    from dffx_torch.eval import load_params_auto
+
+    fs = torch.from_numpy(rng.uniform(-1, 1, (1, 10, 64, 96, 3)).astype(np.float32))
+    fd = torch.from_numpy(np.linspace(0.1, 1.5, 10, dtype=np.float32)[None])
+    fovs = torch.from_numpy(np.linspace(1.0, 1.05, 10, dtype=np.float32)[None])
+    net = load_params_auto(0, device=cuda, e2e=True)
+    assert isinstance(net, E2ENetwork)
+    with torch.inference_mode():
+        got = net(fs.to(cuda), fd.to(cuda), fovs.to(cuda))
+        ref = load_params_auto(0, e2e=True)(fs, fd, fovs)
+    assert tk.launches == E2E_LAUNCHES
     for g, r in zip(got, ref):
         torch.testing.assert_close(g.cpu(), r, atol=1e-4, rtol=0)

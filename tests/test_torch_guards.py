@@ -64,7 +64,8 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
 
 def test_sources_are_the_three_kernels():
     names = {p.name for p in _build.sources()}
-    assert {"fm_conv.cu", "rb2d.cu", "srd_attention.cu", "common.cuh"} <= names
+    assert {"fm_conv.cu", "rb2d.cu", "srd_attention.cu", "rb_of.cu", "motion_head.cu",
+            "common.cuh", "chain.cuh"} <= names
     for p in _build.sources():
         if p.suffix == ".cu":
             text = p.read_text()
@@ -83,4 +84,12 @@ def test_cpu_tensors_never_touch_the_library(monkeypatch):
     aff = (torch.ones(8), torch.zeros(8))
     tk.rb2d_residual(x, torch.zeros(8, 8, 1, 3, 3), aff, torch.zeros(8, 8, 1, 3, 3), aff)
     tk.srd_attention_residual(x, torch.zeros(8, 8, 3, 1, 1), torch.zeros(8, 8, 1, 1, 1))
+    blk = (torch.zeros(8, 8, 1, 3, 3), aff, torch.zeros(8, 8, 1, 3, 3), aff,
+           torch.zeros(8, 8, 1, 1, 1))
+    tk.rb_of_chain(x, [blk, blk])
+    aff16 = (torch.ones(16), torch.zeros(16))
+    tk.motion_head_conv_chain(torch.zeros(1, 18, 2, 8, 8), torch.zeros(16, 18, 1, 3, 3), aff16,
+                              torch.zeros(16, 16, 1, 3, 3), aff16, torch.zeros(16, 16, 1, 3, 3),
+                              aff16, torch.zeros(3, 16, 1, 3, 3), torch.zeros(3))
+    assert len(tk.launches) == 5
     assert tk.launches == dict.fromkeys(tk.launches, 0)
