@@ -20,7 +20,8 @@ counts just after it.  Every phase prints one JSON line and raises on
 failure.  The second-to-last line lists each kernel with its launches in the
 end-to-end serving run, its error against its twin and both times at the
 end-to-end path's shapes (rb_of_chain: the sum over its three pyramid
-levels); the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
+levels, and each level under ``levels``); the last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the repository around it, the script exits non-zero and
 prints no result.
 """
@@ -160,6 +161,20 @@ def phase_kernels(torch, tk, dev) -> dict:
             if tag.startswith("e2e") and dtype == torch.float32:
                 path[name].append(row)
     return path
+
+
+def kernel_entry(name: str, rows: list, launches: int) -> dict:
+    """One kernel of the result line: its fp32 rows at the end-to-end path's
+    shapes summed; a kernel with several (rb_of_chain's three pyramid levels)
+    also lists each under ``levels``."""
+    entry = {"name": name, "route": "cuda", "source": REPLACES[name][0],
+             "replaces": REPLACES[name][1], "launches": launches,
+             "max_abs_err": max(r["max_abs_err"] for r in rows),
+             "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows)}
+    if len(rows) > 1:
+        entry["levels"] = {r["shape"].removeprefix("e2e_"): {
+            k: r[k] for k in ("ms", "plain_ms", "max_abs_err")} for r in rows}
+    return entry
 
 
 def check_launches(got: dict, want: dict, what: str) -> None:
@@ -355,12 +370,7 @@ def main() -> int:
     served = dict(tk.launches)
     check_launches(served, {k: v * forwards for k, v in E2E_LAUNCHES.items()}, "e2e serving")
 
-    emit({"kernels": [
-        {"name": name, "route": "cuda", "source": REPLACES[name][0],
-         "replaces": REPLACES[name][1], "launches": served[name],
-         "max_abs_err": max(r["max_abs_err"] for r in path_rows[name]),
-         "ms": sum(r["ms"] for r in path_rows[name]),
-         "plain_ms": sum(r["plain_ms"] for r in path_rows[name])} for name in REPLACES]})
+    emit({"kernels": [kernel_entry(name, path_rows[name], served[name]) for name in REPLACES]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

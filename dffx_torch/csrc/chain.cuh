@@ -10,7 +10,9 @@
 //
 // Weights sit in shared memory as [cin][tap][cout] and are read as warp-wide
 // broadcasts, four output channels per 16-byte load; every section of the
-// weight area starts on a 16-byte boundary (padded with round4).
+// weight area starts on a 16-byte boundary (padded with round4).  The wrapper
+// packs each conv in that order already, so a block copies it contiguously
+// (load_vector): neighbouring threads write neighbouring banks.
 #pragma once
 
 #include "common.cuh"
@@ -21,17 +23,6 @@ __host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
 
 __device__ __forceinline__ bool in_image(int gh, int gw, int H, int W) {
   return gh >= 0 && gh < H && gw >= 0 && gw < W;
-}
-
-// torch (cout, cin, 1, kh, kw) with taps = kh * kw -> [cin][tap][cout]
-template <int NT>
-__device__ __forceinline__ void load_conv_weights(const float* __restrict__ g,
-                                                  float* __restrict__ s, int cout,
-                                                  int cin, int taps) {
-  for (int i = threadIdx.x; i < cout * cin * taps; i += NT) {
-    const int co = i / (cin * taps), r = i % (cin * taps);
-    s[r * cout + co] = g[i];
-  }
 }
 
 template <int NT>

@@ -34,13 +34,13 @@ constexpr int IH = TH + 8, IW = TW + 8;  // input tile with the chain's 4-pixel 
 using dffx::round4;
 
 // parameters as the wrapper packs them: w0, s0, b0, w1, s1, b1, w2, s2, b2, w3,
-// bias3 (torch layouts, back to back)
+// bias3, back to back, each conv as [cin][tap][cout]
 constexpr int G_W0 = 0, G_S0 = G_W0 + 9 * CIN * C, G_B0 = G_S0 + C, G_W1 = G_B0 + C,
               G_S1 = G_W1 + 9 * C * C, G_B1 = G_S1 + C, G_W2 = G_B1 + C,
               G_S2 = G_W2 + 9 * C * C, G_B2 = G_S2 + C, G_W3 = G_B2 + C,
               G_BIAS = G_W3 + 9 * C * CO;
-// shared memory: the same sections 16-byte aligned, convs as [cin][tap][cout],
-// then the input tile and two intermediates
+// shared memory: the same sections 16-byte aligned, then the input tile and two
+// intermediates
 constexpr int S_W0 = 0, S_S0 = S_W0 + round4(9 * CIN * C), S_B0 = S_S0 + round4(C),
               S_W1 = S_B0 + round4(C), S_S1 = S_W1 + round4(9 * C * C),
               S_B1 = S_S1 + round4(C), S_W2 = S_B1 + round4(C),
@@ -56,10 +56,10 @@ __global__ void __launch_bounds__(NT)
 motion_head_kernel(const T* __restrict__ x, const float* __restrict__ params,
                    T* __restrict__ y, int N, int H, int W) {
   extern __shared__ __align__(16) float smem[];
-  dffx::load_conv_weights<NT>(params + G_W0, smem + S_W0, C, CIN, 9);
-  dffx::load_conv_weights<NT>(params + G_W1, smem + S_W1, C, C, 9);
-  dffx::load_conv_weights<NT>(params + G_W2, smem + S_W2, C, C, 9);
-  dffx::load_conv_weights<NT>(params + G_W3, smem + S_W3, CO, C, 9);
+  dffx::load_vector<NT>(params + G_W0, smem + S_W0, 9 * CIN * C);
+  dffx::load_vector<NT>(params + G_W1, smem + S_W1, 9 * C * C);
+  dffx::load_vector<NT>(params + G_W2, smem + S_W2, 9 * C * C);
+  dffx::load_vector<NT>(params + G_W3, smem + S_W3, 9 * C * CO);
   dffx::load_vector<NT>(params + G_S0, smem + S_S0, C);
   dffx::load_vector<NT>(params + G_B0, smem + S_B0, C);
   dffx::load_vector<NT>(params + G_S1, smem + S_S1, C);

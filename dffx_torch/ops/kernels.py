@@ -25,6 +25,8 @@ counts kernel launches per wrapper, so a run can show it went through them.
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Sequence, Tuple
 
 import torch
@@ -45,6 +47,10 @@ __all__ = [
     "rb_of_chain_ref",
     "motion_head_conv_chain",
     "motion_head_conv_chain_ref",
+    "fma_conv_layout",
+    "mma_conv_layout",
+    "rb_of_chain_params",
+    "motion_head_params",
     "launches",
     "reset_launches",
 ]
@@ -97,20 +103,65 @@ def _param(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return t.float().contiguous()
 
 
-def _cuda_args(x: torch.Tensor, c_ok=None):
-    """Check what only the kernel needs; returns (library, stream handle)."""
+def _cuda_args(x: torch.Tensor, c_ok=None, bn_in_grid: bool = True):
+    """Check what only the kernel needs; returns (library, stream handle).
+    ``bn_in_grid``: the launch has B * N as a grid dimension (at most 65535)."""
     if not x.is_contiguous():
         raise ValueError("the CUDA kernels take contiguous (B, C, N, H, W) tensors")
     if c_ok is not None and x.shape[1] not in c_ok:
         raise ValueError(f"kernel built for C in {c_ok}, got C = {x.shape[1]}")
-    if x.shape[0] * x.shape[2] > 65535:
+    if bn_in_grid and x.shape[0] * x.shape[2] > 65535:
         raise ValueError("B * N is a grid dimension of the launch: at most 65535")
     return _build.library(), torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _packed(x: torch.Tensor, tensors) -> torch.Tensor:
-    """Weights and affines flattened, in order, into one fp32 buffer on x's card."""
-    return torch.cat([_param(t, x).reshape(-1) for t in tensors])
+@functools.lru_cache(maxsize=None)
+def _gather_index(shapes: tuple, layouts: tuple, device: torch.device) -> torch.Tensor:
+    """Where each packed entry sits in the concatenation of the flat tensors."""
+    parts, off = [], 0
+    for shape, layout in zip(shapes, layouts):
+        idx = torch.arange(off, off + math.prod(shape)).view(shape)
+        parts.append(layout(idx) if layout else idx.reshape(-1))
+        off += idx.numel()
+    return torch.cat(parts).to(device)
+
+
+def _packed(x: torch.Tensor, tensors, layouts) -> torch.Tensor:
+    """Weights and affines in order, each flattened in its layout (``None``:
+    as it is), back to back in one fp32 buffer on x's card.  One
+    concatenation and one gather: the host's work per call stays two
+    launches."""
+    flat = torch.cat([t.reshape(-1) for t in tensors]).float()
+    if flat.device != x.device:
+        raise ValueError(f"parameters on {flat.device}, activations on {x.device}")
+    return flat.take(_gather_index(tuple(tuple(t.shape) for t in tensors), tuple(layouts),
+                                   x.device))
+
+
+def fma_conv_layout(w: torch.Tensor) -> torch.Tensor:
+    """Conv weight ``(Cout, Cin, 1, kh, kw)`` as the FMA kernels read it
+    (``csrc/chain.cuh``): flat ``[cin][tap][cout]``, tap = ky * kw + kx."""
+    return w.permute(1, 2, 3, 4, 0).reshape(-1)
+
+
+def mma_conv_layout(w: torch.Tensor) -> torch.Tensor:
+    """Conv weight ``(Cout, Cin, 1, kh, kw)`` as B fragments of ``mma.sync``
+    m16n8k8 (``csrc/rb_of.cu``): flat ``[tap][cin // 8][cout // 8][lane][2]``,
+    where entry (lane, j) holds cin = 8 kc + 4 j + lane % 4 and cout = 8 nb +
+    lane // 4.  Cin and Cout are multiples of 8."""
+    co, ci = w.shape[:2]
+    return (w.reshape(co // 8, 8, ci // 8, 2, 4, -1)   # nb, g, kc, j, t, tap
+            .permute(5, 2, 0, 1, 4, 3).reshape(-1))    # tap, kc, nb, g, t, j
+
+
+def rb_of_chain_params(x: torch.Tensor, blocks: Sequence[OFBlock]) -> torch.Tensor:
+    """The fp32 buffer ``csrc/rb_of.cu`` reads, on x's device: per block w1,
+    s1, b1, w2, s2, b2, ws, the convs in ``fma_conv_layout`` for the 3 -> 8 -> 8
+    pair (FMA design) and in ``mma_conv_layout`` for a 16 -> 16 or 32 -> 32
+    block (tensor cores)."""
+    layout = fma_conv_layout if blocks[0][0].shape[1] % 8 else mma_conv_layout
+    return _packed(x, [t for w1, aff1, w2, aff2, ws in blocks for t in (w1, *aff1, w2, *aff2, ws)],
+                   [layout, None, None, layout, None, None, layout] * len(blocks))
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -259,7 +310,8 @@ def rb_of_chain(x: torch.Tensor, blocks: Sequence[OFBlock]) -> torch.Tensor:
     ``(Cout, Cout, 1, 3, 3)``, the 1x1 projection shortcut ws ``(Cout, Cin, 1,
     1, 1)``, all bias-free, and aff = fp32 (scale, shift) ``(Cout,)``.  The
     kernel takes the chains (3->8, 8->8), (16->16) and (32->32) and any
-    H, W >= 1; the twin takes any chain."""
+    B, N, H, W >= 1; the twin takes any chain.  The weights are repacked on
+    every call (``rb_of_chain_params``)."""
     _check_act(x)
     if not blocks:
         raise ValueError("rb_of_chain needs at least one block")
@@ -280,10 +332,9 @@ def rb_of_chain(x: torch.Tensor, blocks: Sequence[OFBlock]) -> torch.Tensor:
         raise _unsupported(x)
     if tuple(chans) not in _RB_OF_CHAINS:
         raise ValueError(f"kernel built for chains {_RB_OF_CHAINS}, got {tuple(chans)}")
-    lib, stream = _cuda_args(x)
+    lib, stream = _cuda_args(x, bn_in_grid=False)
     b, _, n, h, wd = x.shape
-    params = _packed(x, [t for w1, aff1, w2, aff2, ws in blocks
-                         for t in (w1, *aff1, w2, *aff2, ws)])
+    params = rb_of_chain_params(x, blocks)
     y = torch.empty((b, cin, n, h, wd), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.dffx_rb_of_chain(
@@ -308,6 +359,14 @@ def motion_head_conv_chain_ref(x, w0, aff0: Affine, w1, aff1: Affine, w2, aff2: 
         y = torch.relu(y * _view(scale.float()) + _view(shift.float())).to(x.dtype)
     y = F.conv3d(y, w3.to(x.dtype), padding=(0, 1, 1)).float()
     return (y + _view(bias3.float())).to(x.dtype)
+
+
+def motion_head_params(x, w0, aff0: Affine, w1, aff1: Affine, w2, aff2: Affine, w3, bias3
+                       ) -> torch.Tensor:
+    """The fp32 buffer ``csrc/motion_head.cu`` reads, on x's device: w0, s0, b0,
+    w1, s1, b1, w2, s2, b2, w3, bias3, the convs in ``fma_conv_layout``."""
+    return _packed(x, (w0, *aff0, w1, *aff1, w2, *aff2, w3, bias3),
+                   [fma_conv_layout, None, None] * 3 + [fma_conv_layout, None])
 
 
 def motion_head_conv_chain(x: torch.Tensor, w0: torch.Tensor, aff0: Affine,
@@ -338,7 +397,7 @@ def motion_head_conv_chain(x: torch.Tensor, w0: torch.Tensor, aff0: Affine,
         raise ValueError(f"kernel built for (Cin, C) in {_MOTION_HEAD_WIDTHS}, got {(cin, c)}")
     lib, stream = _cuda_args(x)
     b, _, n, h, wd = x.shape
-    params = _packed(x, (w0, *aff0, w1, *aff1, w2, *aff2, w3, bias3))
+    params = motion_head_params(x, w0, aff0, w1, aff1, w2, aff2, w3, bias3)
     y = torch.empty((b, 3, n, h, wd), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.dffx_motion_head_conv_chain(

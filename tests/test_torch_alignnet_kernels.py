@@ -12,6 +12,7 @@ import functools
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
@@ -146,6 +147,98 @@ def test_ragged_shapes_match_xla_formula(rng):
             ref = jnp.maximum(conv3d(ref, jnp.asarray(wsc)) + _cbn(_cbn(ref, w1, b1), w2, b2,
                                                                    relu=False), 0)
         np.testing.assert_allclose(_np(_torch_chain(x, blocks)), np.asarray(ref), atol=3e-4)
+
+
+def _tf32(t):
+    """fp32 rounded to TF32 as cvt.rna.tf32.f32 rounds it: to nearest, ties
+    away from zero, the 13 low mantissa bits cleared."""
+    return ((t.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _conv_tf32(x, w, pad, split):
+    """conv3d with TF32 operands and an fp32 sum: plain (hi . hi) or 3xTF32
+    (hi . hi, plus hi . lo + lo . hi summed apart, as csrc/rb_of.cu does)."""
+    xh, wh = _tf32(x), _tf32(w)
+    y = F.conv3d(xh, wh, padding=pad)
+    if split:
+        xl, wl = _tf32(x - xh), _tf32(w - wh)
+        y = y + (F.conv3d(xl, wh, padding=pad) + F.conv3d(xh, wl, padding=pad))
+    return y
+
+
+@pytest.mark.parametrize("c", [16, 32])
+def test_3xtf32_plan_holds_the_fp32_bound(c):
+    """The tensor-core design's numerics, emulated on the CPU at a ragged shape
+    with non-zero BN shifts and chip_smoke.py's weight scale (0.1): 3xTF32 is
+    within the fp32 kernel bound (1e-4) of the twin, plain TF32 is not."""
+    g = np.random.default_rng(3)
+    x = torch.from_numpy(g.uniform(-1, 1, (2, c, 3, 13, 21)).astype(np.float32))
+    w1, w2 = (torch.from_numpy((g.standard_normal((c, c, 1, 3, 3)) * 0.1).astype(np.float32))
+              for _ in range(2))
+    ws = torch.from_numpy((g.standard_normal((c, c, 1, 1, 1)) * 0.1).astype(np.float32))
+    (s1, b1), (s2, b2) = _taff(_bn(g, c)), _taff(_bn(g, c))
+    ref = tk.rb_of_chain_ref(x, [(w1, (s1, b1), w2, (s2, b2), ws)])
+    v = tk._view
+    errs = {}
+    for split in (False, True):
+        mid = torch.relu(_conv_tf32(x, w1, (0, 1, 1), split) * v(s1) + v(b1))
+        w2s = w2 * s2.view(-1, 1, 1, 1, 1)  # the kernel folds BN2's scale into w2
+        y = torch.relu(_conv_tf32(x, ws, 0, split) + _conv_tf32(mid, w2s, (0, 1, 1), split)
+                       + v(b2))
+        errs[split] = (y - ref).abs().max().item()
+    assert errs[True] <= 1e-4 < errs[False], errs
+
+
+def _read_mma(section, co, ci, taps):
+    """A conv as csrc/rb_of.cu reads its B fragments, back to (co, ci, taps)."""
+    tap, kc, nb, lane, j = np.indices((taps, ci // 8, co // 8, 32, 2)).reshape(5, -1)
+    w = np.full((co, ci, taps), np.nan, np.float32)
+    w[nb * 8 + lane // 4, kc * 8 + 4 * j + lane % 4, tap] = section
+    return w
+
+
+def _read_fma(section, co, ci, taps):
+    """A conv as csrc/chain.cuh reads it ([cin][tap][cout]), back to (co, ci, taps)."""
+    c, tap, o = np.indices((ci, taps, co)).reshape(3, -1)
+    w = np.full((co, ci, taps), np.nan, np.float32)
+    w[o, c, tap] = section
+    return w
+
+
+@pytest.mark.parametrize("chans", [CHAINS[0], ((16, 16),), ((32, 32),)],
+                         ids=["fe1_pair", "c16", "c32"])
+def test_packed_weights_read_back_as_torch_weights(rng, chans):
+    x, blocks = _chain_inputs(rng, 1, 2, 5, 7, chans)
+    tblocks = [(_w(w1), _taff(b1), _w(w2), _taff(b2), _w(ws)) for w1, b1, w2, b2, ws in blocks]
+    packed = tk.rb_of_chain_params(_t(x), tblocks).numpy()
+    read = _read_fma if chans[0][0] % 8 else _read_mma
+    off = 0
+    for (ci, co), (w1, (s1, b1), w2, (s2, b2), ws) in zip(chans, tblocks):
+        for t, taps, cin in ((w1, 9, ci), (s1, 0, 0), (b1, 0, 0), (w2, 9, co), (s2, 0, 0),
+                             (b2, 0, 0), (ws, 1, ci)):
+            n = t.numel()
+            got = packed[off:off + n]
+            if taps:
+                got = read(got, co, cin, taps)
+            np.testing.assert_array_equal(got, t.reshape(got.shape).numpy())
+            off += n
+    assert off == packed.size
+
+
+def test_motion_head_weights_read_back_as_torch_weights(rng):
+    x, ws, bns, bias3 = _head_inputs(rng, 1, 2, 5, 7)
+    args = [_w(ws[0]), _taff(bns[0]), _w(ws[1]), _taff(bns[1]), _w(ws[2]), _taff(bns[2]),
+            _w(ws[3]), torch.from_numpy(bias3)]
+    packed = tk.motion_head_params(_t(x), *args).numpy()
+    off = 0
+    for t in (args[0], *args[1], args[2], *args[3], args[4], *args[5], args[6], args[7]):
+        n = t.numel()
+        got = packed[off:off + n]
+        if t.dim() == 5:
+            got = _read_fma(got, t.shape[0], t.shape[1], 9)
+        np.testing.assert_array_equal(got, t.reshape(got.shape).numpy())
+        off += n
+    assert off == packed.size
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(rng):

@@ -132,6 +132,41 @@ def test_bf16_rounds_only_the_output(cuda, rng):
     assert (got.float() - ref).abs().max().item() <= 2.0 ** -8 * ref.abs().max().item() + 1e-4
 
 
+@pytest.mark.parametrize("chans", CHAINS, ids=["fe1_pair", "c16", "c32"])
+@pytest.mark.parametrize("b,n,h,w", [(1, 2, 40, 72), (2, 3, 7, 5)])
+def test_rb_of_chain_bf16_rounds_only_the_output(cuda, rng, b, n, h, w, chans):
+    """bf16 in, fp32 inside (3xTF32 on the tensor cores at 16 and 32 channels):
+    within half a bf16 ulp (< 2^-8 |max|) of the fp32 twin."""
+    x, blocks = _chain_args(rng, b, n, h, w, chans, cuda)
+    got = tk.rb_of_chain(x.bfloat16(), blocks)
+    ref = tk.rb_of_chain_ref(x.bfloat16().float(), blocks)
+    assert got.dtype == torch.bfloat16
+    assert (got.float() - ref).abs().max().item() <= 2.0 ** -8 * ref.abs().max().item() + 1e-4
+
+
+@pytest.mark.parametrize("chans,shape", [
+    (((32, 32),), (2, 10, 152, 272)),  # 3,420 tiles: many per block of the persistent grid
+    (((16, 16),), (1, 10, 304, 544)),
+    (((16, 16),), (1, 3, 7, 5)),       # fewer tiles than blocks, ragged
+    (((32, 32),), (1, 3, 7, 5)),
+], ids=["c32_b2_fe3", "c16_fe2", "c16_tiny", "c32_tiny"])
+def test_rb_of_chain_persistent_grid_matches_twin(cuda, rng, chans, shape):
+    x, blocks = _chain_args(rng, *shape, chans, cuda)
+    got = tk.rb_of_chain(x, blocks)
+    torch.cuda.synchronize()
+    assert tk.launches["rb_of_chain"] == 1
+    torch.testing.assert_close(got, tk.rb_of_chain_ref(x, blocks), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("chans", CHAINS, ids=["fe1_pair", "c16", "c32"])
+def test_rb_of_chain_takes_more_than_65535_slices(cuda, rng, chans):
+    """B * N is no grid dimension of rb_of_chain's launches."""
+    x, blocks = _chain_args(rng, 1, 65537, 2, 3, chans, cuda)
+    got = tk.rb_of_chain(x, blocks)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, tk.rb_of_chain_ref(x, blocks), atol=1e-4, rtol=0)
+
+
 def test_wrappers_refuse_non_contiguous_and_unbuilt_widths(cuda, rng):
     x = _act(rng, (1, 8, 2, 16, 16), cuda)
     aff = _aff(rng, 8, cuda)
