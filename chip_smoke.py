@@ -5,7 +5,9 @@ Run from the repository root:  python3 chip_smoke.py
 
 Builds the five CUDA kernels from dffx_torch/csrc and holds each against its
 plain PyTorch twin on the card, in fp32 and bf16, at the shapes its paths
-give it and at ragged ones.  Then it drives two paths:
+give it, at ragged and tiny ones, at a batch of many tiles and at more than
+65,535 slices, each row with the least time the card could take for the same
+work (``bound_ms``).  Then it drives two paths:
 
 * DFFNet (depth only): the goldens, the forward against the same model on
   the CPU, and serving synthetic 10 x 384 x 384 stacks through
@@ -18,9 +20,10 @@ give it and at ragged ones.  Then it drives two paths:
 Each path's serving run starts with every launch count at 0 and checks the
 counts just after it.  Every phase prints one JSON line and raises on
 failure.  The second-to-last line lists each kernel with its launches in the
-end-to-end serving run, its error against its twin and both times at the
-end-to-end path's shapes (rb_of_chain: the sum over its three pyramid
-levels, and each level under ``levels``); the last line is
+end-to-end serving run, its error against its twin, both times and the bound
+at the end-to-end path's shapes (rb_of_chain: the sum over its three pyramid
+levels, and each level under ``levels``); the line before it gives the build's
+and the whole run's seconds; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the repository around it, the script exits non-zero and
 prints no result.
@@ -53,6 +56,61 @@ REPLACES = {
     "motion_head_conv_chain": ("dffx_torch/csrc/motion_head.cu",
                                "dffx/ops/pallas_kernels.py:508"),
 }
+#: Published peaks of one H100 SXM at its full power limit (NVIDIA's data sheet):
+#: HBM bytes/s and dense TF32 FLOP/s.  The kernels' functions are fp32 convs; on
+#: the tensor cores an fp32-accurate product costs three TF32 products (3xTF32:
+#: hi.hi + hi.lo + lo.hi of the operands' two TF32 parts).  A bf16 activation is
+#: a TF32 already and has no low part: a product of it with an fp32 weight costs
+#: two.
+HBM_BYTES_PER_S = 3.35e12
+TF32_FLOP_PER_S = 495e12
+
+
+def _conv_flop(w) -> int:
+    """FLOP per output pixel of a conv with weight (Cout, Cin, kd, kh, kw)."""
+    return 2 * w.numel()
+
+
+#: per kernel, from its arguments: (FLOP per pixel of the convs that read the
+#: input x, FLOP per pixel of the convs that read an fp32 intermediate, channels
+#: read + written per pixel)
+WORK = {
+    "fm_conv_bn_relu": lambda x, w, *_: (_conv_flop(w), 0, 3 + 8),
+    "rb2d_residual": lambda x, w1, a1, w2, a2: (_conv_flop(w1), _conv_flop(w2), 2 * x.shape[1]),
+    "srd_attention_residual": lambda x, wn, w1: (_conv_flop(wn), _conv_flop(w1),
+                                                 2 * x.shape[1]),
+    "rb_of_chain": lambda x, blocks: (
+        _conv_flop(blocks[0][0]) + _conv_flop(blocks[0][4]),
+        sum(_conv_flop(w2) for _, _, w2, _, _ in blocks)
+        + sum(_conv_flop(w1) + _conv_flop(ws) for w1, _, _, _, ws in blocks[1:]),
+        x.shape[1] + blocks[-1][0].shape[0]),
+    "motion_head_conv_chain": lambda x, w0, a0, w1, a1, w2, a2, w3, b3: (
+        _conv_flop(w0), sum(_conv_flop(w) for w in (w1, w2, w3)), x.shape[1] + 3),
+}
+
+
+def bound_ms(name: str, x, *args) -> tuple:
+    """The least time the card could take for this call, and what sets it: the
+    larger of its bytes (every input and output element moved once, in x's
+    dtype) over the HBM rate and its operations over the TF32 rate, three TF32
+    products for one of fp32 values and two where the activation is a bf16
+    input.  No single PyTorch call computes any of the five functions (each is
+    a fused chain of convs, BN and ReLU), so no row has a library time."""
+    import torch
+
+    flop_in, flop_mid, chans_px = WORK[name](x, *args)
+    pixels = x.numel() // x.shape[1]
+    by_bytes = pixels * chans_px * x.element_size() / HBM_BYTES_PER_S * 1e3
+    tf32_flop = (2 if x.dtype == torch.bfloat16 else 3) * flop_in + 3 * flop_mid
+    by_ops = pixels * tf32_flop / TF32_FLOP_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+#: the function that packs a kernel's weights into the one buffer it reads, for
+#: the kernels whose modules keep that buffer between forwards (tk.ParamCache)
+PACKERS = {"fm_conv_bn_relu": "fm_conv_params", "rb_of_chain": "rb_of_chain_params",
+           "motion_head_conv_chain": "motion_head_params"}
+
 #: launches of each kernel in one forward of each network
 DFFNET_LAUNCHES = {"fm_conv_bn_relu": 1, "rb2d_residual": 1, "srd_attention_residual": 1}
 FLOWNET_LAUNCHES = {"rb_of_chain": 3, "motion_head_conv_chain": 1}
@@ -102,8 +160,12 @@ def kernel_cases(rng, torch, tk, dev):
 
     path, b4, ddff, ragged = (1, N, H, W), (4, N, H, W), (1, N, 384, 576), (2, 3, 40, 72)
     e2e = (1, N, EH, EW)
+    # the persistent grids: many tiles per block, H and W no multiple of the
+    # tile or of 4, less than one tile, more slices than a grid dimension holds
+    many, odd, tiny, slices = (2, N, EH, EW), (1, 3, 45, 101), (1, 2, 7, 5), (1, 65537, 2, 3)
     for tag, (b, n, h, w) in [("path", path), ("b4", b4), ("ddff", ddff), ("ragged", ragged),
-                              ("e2e", e2e)]:
+                              ("e2e", e2e), ("many", many), ("odd", odd), ("tiny", tiny),
+                              ("slices", slices)]:
         yield "fm_conv_bn_relu", tag, (act((b, 3, n, h, w)), wt((8, 3, 1, 9, 9)), *bn(8))
     rb_shapes = [("path", path, 8), ("b4", b4, 8), ("ddff", ddff, 8), ("ragged", ragged, 8),
                  ("ragged", ragged, 16), ("ragged", ragged, 32), ("e2e", e2e, 8)]
@@ -122,7 +184,8 @@ def kernel_cases(rng, torch, tk, dev):
         yield "rb_of_chain", tag, (act((b, ch[0][0], n, h, w)), [
             (wt((co, ci, 1, 3, 3)), bn(co), wt((co, co, 1, 3, 3)), bn(co), wt((co, ci, 1, 1, 1)))
             for ci, co in ch])
-    for tag, (b, n, h, w) in [("e2e", e2e), ("ragged", ragged), ("tiny", (1, 2, 7, 5))]:
+    for tag, (b, n, h, w) in [("e2e", e2e), ("many", many), ("ragged", ragged), ("odd", odd),
+                              ("tiny", tiny)]:
         yield "motion_head_conv_chain", tag, (
             act((b, 18, n, h, w)), wt((16, 18, 1, 3, 3)), bn(16), wt((16, 16, 1, 3, 3)), bn(16),
             wt((16, 16, 1, 3, 3)), bn(16), wt((3, 16, 1, 3, 3)), wt((3,)))
@@ -130,7 +193,9 @@ def kernel_cases(rng, torch, tk, dev):
 
 def phase_kernels(torch, tk, dev) -> dict:
     """Each kernel against its twin, fp32 and bf16; returns, per kernel, its
-    fp32 rows at the end-to-end path's shapes."""
+    fp32 rows at the end-to-end path's shapes.  The compared call packs the
+    weights itself; the timed calls get them packed from a ``ParamCache``, as
+    the modules call the wrappers."""
     import numpy as np
 
     rng = np.random.default_rng(0)
@@ -151,11 +216,19 @@ def phase_kernels(torch, tk, dev) -> dict:
                 # only its output to bf16: at most half an ulp, which is below
                 # 2^-8 of the largest |value|; 1e-4 covers fp32 summation order
                 bound = 2.0 ** -8 * ref.abs().max().item() + FP32_ATOL
-            ms = median_ms(lambda: kernel(*kargs))
+            if name in PACKERS:
+                cache = tk.ParamCache(getattr(tk, PACKERS[name]))
+                kept = kernel(*kargs, params=cache(*kargs))
+                check(torch.equal(kept, got), f"{name} {tag} {dtype}: kept params differ")
+                ms = median_ms(lambda: kernel(*kargs, params=cache(*kargs)))
+            else:
+                ms = median_ms(lambda: kernel(*kargs))
             plain_ms = median_ms(lambda: twin(*kargs))
+            least_ms, bound_by = bound_ms(name, *kargs)
             row = {"phase": "kernel", "kernel": name, "shape": tag, "in": list(x.shape),
                    "dtype": str(dtype).split(".")[1], "max_abs_err": err, "bound": bound,
-                   "ms": ms, "plain_ms": plain_ms}
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": least_ms, "bound_by": bound_by,
+                   "ms_over_bound": ms / least_ms}
             emit(row)
             check(err <= bound, f"{name} {tag} {dtype}: error {err} > {bound}")
             if tag.startswith("e2e") and dtype == torch.float32:
@@ -166,14 +239,21 @@ def phase_kernels(torch, tk, dev) -> dict:
 def kernel_entry(name: str, rows: list, launches: int) -> dict:
     """One kernel of the result line: its fp32 rows at the end-to-end path's
     shapes summed; a kernel with several (rb_of_chain's three pyramid levels)
-    also lists each under ``levels``."""
+    also lists each under ``levels``.  ``bound_by``: what sets the largest
+    row's bound.  ``library_ms`` is null: no single PyTorch call computes the
+    function (see ``bound_ms``)."""
     entry = {"name": name, "route": "cuda", "source": REPLACES[name][0],
              "replaces": REPLACES[name][1], "launches": launches,
              "max_abs_err": max(r["max_abs_err"] for r in rows),
-             "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows)}
+             "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+             "bound_ms": sum(r["bound_ms"] for r in rows),
+             "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
+             "library_ms": None}
+    entry["ms_over_bound"] = entry["ms"] / entry["bound_ms"]
     if len(rows) > 1:
         entry["levels"] = {r["shape"].removeprefix("e2e_"): {
-            k: r[k] for k in ("ms", "plain_ms", "max_abs_err")} for r in rows}
+            k: r[k] for k in ("ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by")}
+            for r in rows}
     return entry
 
 
@@ -231,6 +311,7 @@ def main() -> int:
     import numpy as np
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
@@ -292,7 +373,7 @@ def main() -> int:
         check_launches(tk.launches, DFFNET_LAUNCHES, f"forward {dtype}")
         check_depth(torch, o, fd, dtype, (1, H, W), "forward", [1, N, H, W], dict(tk.launches))
         outs[dtype] = [t.float().cpu() for t in o]
-    cpu_net = load_params_auto(0)
+    cpu_net = load_params_auto(0, device="cpu")
     with torch.inference_mode():
         cpu_outs = cpu_net(fs, fd)
     heads = ["mid", "pred1", "pred2", "pred3"]
@@ -332,7 +413,7 @@ def main() -> int:
 
     # 8. end-to-end forward against the CPU at a medium shape; bf16 against fp32
     e2e = load_params_auto(0, device=dev, e2e=True)
-    cpu_e2e = load_params_auto(0, e2e=True)
+    cpu_e2e = load_params_auto(0, device="cpu", e2e=True)
     fd10 = torch.from_numpy((1 / np.linspace(0.2, 3.0, 10, dtype=np.float32))[None])
     fovs = torch.from_numpy((1.0 + np.linspace(0.0, 0.03, 10)
                              + rng.uniform(-0.005, 0.005, 10)).astype(np.float32)[None])
@@ -370,6 +451,8 @@ def main() -> int:
     served = dict(tk.launches)
     check_launches(served, {k: v * forwards for k, v in E2E_LAUNCHES.items()}, "e2e serving")
 
+    emit({"phase": "time", "build_seconds": seconds,
+          "run_seconds": time.perf_counter() - t_start, "limit_seconds": 1200})
     emit({"kernels": [kernel_entry(name, path_rows[name], served[name]) for name in REPLACES]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

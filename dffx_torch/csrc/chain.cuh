@@ -1,4 +1,5 @@
-// Building blocks of the chained (1,3,3)-conv kernels (rb_of.cu, motion_head.cu).
+// Building blocks of the chained (1,3,3)-conv kernel on the fp32 FMA pipe: rb_of.cu's
+// 3 -> 8 -> 8 pair.
 //
 // A chained kernel owns one output tile of one focal slice.  Its input tile,
 // with one pixel of halo per conv of the chain, sits in shared memory, and
@@ -20,10 +21,6 @@
 namespace dffx {
 
 __host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
-
-__device__ __forceinline__ bool in_image(int gh, int gw, int H, int W) {
-  return gh >= 0 && gh < H && gw >= 0 && gw < W;
-}
 
 template <int NT>
 __device__ __forceinline__ void load_vector(const float* __restrict__ g,

@@ -25,4 +25,8 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, int64_t i, float v) {
   p[i] = __float2bfloat16(v);
 }
 
+__device__ __forceinline__ bool in_image(int gh, int gw, int H, int W) {
+  return gh >= 0 && gh < H && gw >= 0 && gw < W;
+}
+
 }  // namespace dffx

@@ -25,10 +25,12 @@
 // * The convs run on the tensor cores as implicit GEMMs (M = the tile's
 //   pixels, N = Cout, K = 9 Cin): mma.sync m16n8k8 with TF32 operands.  Plain
 //   TF32 misses the fp32 bound by 25-55x, so each operand is split into two
-//   TF32 parts, v = hi + lo (cvt.rna), and a product is hi.hi + hi.lo + lo.hi
-//   (3xTF32): fp32 accuracy at a third of the TF32 rate, still well above the
-//   FMA pipe.  The tensor cores truncate each sum they accumulate, so the
-//   small terms go to an accumulator of their own (see mma_kstep).
+//   TF32 parts, v = hi + lo (a mask and a subtraction: mma.cuh::split_tf32),
+//   and a product is hi.hi + hi.lo + lo.hi (3xTF32): fp32 accuracy at a third
+//   of the TF32 rate, still well above the FMA pipe.  The tensor cores
+//   truncate each sum they accumulate, so the small terms go to an
+//   accumulator of their own (mma.cuh::mma_3xtf32).  A bf16 input is a TF32
+//   already: conv1 and the shortcut then have no lo.hi term.
 // * A persistent grid (blocks per SM from the occupancy API) walks the
 //   tiles; each block copies the weights into shared memory once, already in
 //   B-fragment order (the wrapper packs them), with 16-byte cp.async.
@@ -45,17 +47,31 @@
 //   A 32 x 12 tile fits at C = 32 (216 KB) and cuts the halo from 1.33x to
 //   1.24x, but measured slower on the H100 (0.50 against 0.47 ms at
 //   1 x 32 x 10 x 152 x 272): its 30 conv1 m-tiles split unevenly over 8 warps.
-// Now the instructions around the MMAs bound it: at C = 16 each m16n8k8 MMA
-// comes with about four others (A-fragment loads, the hi/lo splits), at
-// C = 32 about three, and the tensor cores run at a fifth to a quarter of
-// their TF32 peak.
+// Now the instructions around the MMAs bound it (A-fragment loads, the hi/lo
+// splits), and the tensor cores run at about a quarter of their TF32 peak.
+// With cvt.rna.tf32.f32 for the splits and one m-tile per k-step at a time,
+// the kernel alone took 0.56 ms at 1 x 16 x 10 x 304 x 544 and 0.47 ms at
+// 1 x 32 x 10 x 152 x 272 on the H100 (700 W); with the masked split and the
+// warp's m-tiles together (mma.cuh::mma_kstep_at) 0.47 and 0.40 ms, in bf16
+// 0.37 and 0.38 ms (were 0.58 and 0.53).
 // The pair keeps one 32 x 8 tile per block, all output channels of a pixel in
 // a thread's registers, weights as shared-memory broadcasts (chain.cuh).
+#include <type_traits>
+
 #include "chain.cuh"
+#include "mma.cuh"
 
 namespace {
 
+using dffx::conv3x3_mma;
+using dffx::cp_async16;
+using dffx::cp_async_commit;
+using dffx::cp_async_wait_all;
+using dffx::cp_async_wait_older;
+using dffx::mma_kstep_at;
+using dffx::plane;
 using dffx::round4;
+using dffx::stage_tile;
 
 // ---------------------------------------------------------------------------
 // The 3 -> 8 -> 8 pair: FMA design
@@ -196,9 +212,6 @@ cudaError_t launch_pair(const void* x, const void* params, void* y, int B, int N
 
 constexpr int MMA_TW = 32;
 
-// the smallest plane stride >= n that is 8 (mod 32) floats
-__host__ __device__ constexpr int plane(int n) { return n + ((8 - n % 32) + 32) % 32; }
-
 // Tile, fragment and shared-memory plan of one C -> C block on TH x 32 tiles.
 // Parameters as the wrapper packs them (OFBlock's sections), each conv as B
 // fragments [tap][cin / 8][cout / 8][lane][2] (kernels.py::mma_conv_layout);
@@ -222,138 +235,6 @@ struct MmaPlan {
   static_assert(TH * MMA_TW % (16 * NW) == 0, "conv2's m-tiles split evenly");
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-// copies 4 bytes, or writes 0 when src_bytes is 0
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_older() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// v = hi + lo with both parts TF32 (round to nearest, ties away from zero)
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(v));
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(v - __uint_as_float(hi)));
-}
-
-// d += a b, m16n8k8, TF32 in, fp32 accumulator
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One k-step of 8 channels, 3xTF32, for the warp's first nvalid m-tiles:
-// acc[j][nb][0] += A_hi B_hi and acc[j][nb][1] += A_lo B_hi + A_hi B_lo.  The
-// tensor cores truncate each sum they accumulate, a bias that grows with the
-// number of MMAs into one accumulator and its size; keeping the small terms
-// apart cuts the MMAs into the large accumulator to one per k-step.  Thread
-// (g, t) = (lane / 4, lane % 4) reads A_j at src[pa[j]] (pixel g, channel t),
-// src[pb[j]] (pixel g + 8) and, 4 channels on, at + 4P; pa and pb already hold
-// t * P.  bfrag: this k-step's packed B fragments, NB x 32 lanes x 2.
-template <int MG, int NB, int P>
-__device__ __forceinline__ void mma_kstep(const float* __restrict__ src, const int (&pa)[MG],
-                                          const int (&pb)[MG], int nvalid,
-                                          const float2* __restrict__ bfrag, int lane,
-                                          float (&acc)[MG][NB][2][4]) {
-  uint32_t bh[NB][2], bl[NB][2];
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb) {
-    const float2 v = bfrag[nb * 32 + lane];
-    split_tf32(v.x, bh[nb][0], bl[nb][0]);
-    split_tf32(v.y, bh[nb][1], bl[nb][1]);
-  }
-#pragma unroll
-  for (int j = 0; j < MG; ++j) {
-    if (j < nvalid) {
-      uint32_t ah[4], al[4];
-      split_tf32(src[pa[j]], ah[0], al[0]);
-      split_tf32(src[pb[j]], ah[1], al[1]);
-      split_tf32(src[pa[j] + 4 * P], ah[2], al[2]);
-      split_tf32(src[pb[j] + 4 * P], ah[3], al[3]);
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        mma_tf32(acc[j][nb][1], al, bh[nb][0], bh[nb][1]);
-        mma_tf32(acc[j][nb][1], ah, bl[nb][0], bl[nb][1]);
-        mma_tf32(acc[j][nb][0], ah, bh[nb][0], bh[nb][1]);
-      }
-    }
-  }
-}
-
-// acc += the (1,3,3) conv of src ([CIN][.] planes P floats apart, rows SW
-// wide) at the warp's m-tiles; w: the conv's packed fragments
-template <int CIN, int MG, int NB, int P, int SW>
-__device__ __forceinline__ void conv3x3_mma(const float* __restrict__ src, const int (&pa)[MG],
-                                            const int (&pb)[MG], int nvalid,
-                                            const float* __restrict__ w, int lane,
-                                            float (&acc)[MG][NB][2][4]) {
-  const float2* frag = reinterpret_cast<const float2*>(w);
-#pragma unroll 1
-  for (int ky = 0; ky < 3; ++ky) {
-#pragma unroll
-    for (int kx = 0; kx < 3; ++kx) {
-#pragma unroll
-      for (int kc = 0; kc < CIN / 8; ++kc) {
-        const int ks = (ky * 3 + kx) * (CIN / 8) + kc;
-        mma_kstep<MG, NB, P>(src + kc * 8 * P + ky * SW + kx, pa, pb, nvalid,
-                             frag + ks * NB * 32, lane, acc);
-      }
-    }
-  }
-}
-
-// The input tile [CI][IH][IW] (planes P apart) of slice base, (0, 0) at image
-// pixel (gh0, gw0), 0 outside the image: fp32 by cp.async, bf16 widened
-// through registers.
-template <int CI, int IH, int IW, int P, int NT>
-__device__ __forceinline__ void stage_tile(const float* __restrict__ x, int64_t base,
-                                           int64_t cstride, float* __restrict__ dst, int gh0,
-                                           int gw0, int H, int W) {
-  for (int i = threadIdx.x; i < CI * IH * IW; i += NT) {
-    const int c = i / (IH * IW), r = i % (IH * IW);
-    const int gh = gh0 + r / IW, gw = gw0 + r % IW;
-    const bool inside = dffx::in_image(gh, gw, H, W);
-    const float* src = inside ? x + base + c * cstride + (int64_t)gh * W + gw : x;
-    cp_async4(dst + c * P + r, src, inside ? 4 : 0);
-  }
-}
-
-template <int CI, int IH, int IW, int P, int NT>
-__device__ __forceinline__ void stage_tile(const __nv_bfloat16* __restrict__ x, int64_t base,
-                                           int64_t cstride, float* __restrict__ dst, int gh0,
-                                           int gw0, int H, int W) {
-#pragma unroll 4
-  for (int i = threadIdx.x; i < CI * IH * IW; i += NT) {
-    const int c = i / (IH * IW), r = i % (IH * IW);
-    const int gh = gh0 + r / IW, gw = gw0 + r % IW;
-    dst[c * P + r] = dffx::in_image(gh, gw, H, W)
-                         ? dffx::load(x, base + c * cstride + (int64_t)gh * W + gw)
-                         : 0.f;
-  }
-}
-
 // Persistent: block i takes tiles i, i + gridDim.x, ...; tile index =
 // (b * N + n) * tiles_h * tiles_w + ty * tiles_w + tx.
 template <typename T, int C, int TH, int NW, int MINB>
@@ -362,6 +243,7 @@ rb_of_mma_kernel(const T* __restrict__ x, const float* __restrict__ params, T* _
                  int N, int H, int W, int tiles_w, int tiles_h, int ntiles) {
   using P = MmaPlan<C, TH, NW>;
   constexpr int NB = P::NB;
+  constexpr bool BF16_IN = !std::is_same<T, float>::value;
   extern __shared__ __align__(16) float smem[];
   float* in_s = smem + P::IN;
   float* mid = smem + P::MID;
@@ -415,7 +297,8 @@ rb_of_mma_kernel(const T* __restrict__ x, const float* __restrict__ params, T* _
       }
       const int nvalid = min(mine - i0, P::MG1);
       float acc[P::MG1][NB][2][4] = {};
-      conv3x3_mma<C, P::MG1, NB, P::IP, P::IW>(in_s, pa, pb, nvalid, smem + P::W1, lane, acc);
+      conv3x3_mma<C, P::MG1, NB, P::IP, P::IW, BF16_IN>(in_s, pa, pb, nvalid, smem + P::W1, lane,
+                                                        acc);
 #pragma unroll
       for (int j = 0; j < P::MG1; ++j) {
         if (j >= nvalid) continue;
@@ -449,8 +332,8 @@ rb_of_mma_kernel(const T* __restrict__ x, const float* __restrict__ params, T* _
     const float2* ws = reinterpret_cast<const float2*>(smem + P::WS);
 #pragma unroll
     for (int kc = 0; kc < P::KC; ++kc) {
-      mma_kstep<P::MG2, NB, P::IP>(in_s + kc * 8 * P::IP, pa, pb, P::MG2, ws + kc * NB * 32,
-                                   lane, acc);
+      mma_kstep_at<P::MG2, NB, BF16_IN>(in_s, pa, pb, kc * 8 * P::IP, (kc * 8 + 4) * P::IP,
+                                        P::MG2, ws + kc * NB * 32, lane, acc);
     }
     __syncthreads();  // mid is complete, and no warp reads the input tile again
 
@@ -492,20 +375,11 @@ cudaError_t launch_mma(const void* x, const void* params, void* y, int B, int N,
   using P = MmaPlan<C, TH, NW>;
   const auto kernel = rb_of_mma_kernel<T, C, TH, NW, MINB>;
   const int bytes = P::END * static_cast<int>(sizeof(float));
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, P::NT, bytes);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int tiles_w = (W + MMA_TW - 1) / MMA_TW, tiles_h = (H + TH - 1) / TH;
   const int64_t ntiles = (int64_t)B * N * tiles_w * tiles_h;
-  if (ntiles > 0x7fffffff) return cudaErrorInvalidValue;
-  const int grid = static_cast<int>(ntiles < (int64_t)sms * per_sm ? ntiles : sms * per_sm);
+  int grid = 0;
+  const cudaError_t err = dffx::persistent_grid(kernel, P::NT, bytes, ntiles, &grid);
+  if (err != cudaSuccess) return err;
   kernel<<<grid, P::NT, bytes, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(params), static_cast<T*>(y), N, H, W,
       tiles_w, tiles_h, static_cast<int>(ntiles));

@@ -14,10 +14,12 @@ from dffx_torch.checkpoint import load_jax_params, load_torch_checkpoint
 from dffx_torch.models import E2ENetwork, Network, e2e_init_params, init_params
 
 
-def load_params_auto(source: Union[str, int], *, device="cpu", e2e: bool = False) -> nn.Module:
+def load_params_auto(source: Union[str, int], *, device="cuda", e2e: bool = False) -> nn.Module:
     """An eval-mode ``Network`` (depth only) or, with ``e2e``, ``E2ENetwork``
     (alignment + depth) on ``device``, with weights from a reference ``.pth``
-    path or from an int seed (``init_params`` / ``e2e_init_params``)."""
+    path or from an int seed (``init_params`` / ``e2e_init_params``).  The
+    default device is the GPU: without one this raises, and the CPU is used
+    only when asked for (``device="cpu"``)."""
     net = E2ENetwork() if e2e else Network()
     if isinstance(source, int):
         load_jax_params(net, (e2e_init_params if e2e else init_params)(source))

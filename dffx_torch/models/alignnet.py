@@ -26,7 +26,8 @@ from torch import nn
 
 from dffx_torch.models.dffnet import DFFNet
 from dffx_torch.models.layers import Conv3d, ConvBN3d, init_module_params
-from dffx_torch.ops.kernels import motion_head_conv_chain, rb_of_chain
+from dffx_torch.ops.kernels import (ParamCache, motion_head_conv_chain, motion_head_params,
+                                    rb_of_chain, rb_of_chain_params)
 from dffx_torch.ops.pool import adaptive_avg_pool_focus
 from dffx_torch.ops.warp import flow_cf, warp_cf
 
@@ -66,12 +67,15 @@ class OFLevel(nn.Sequential):
 
     def __init__(self, cin, cout, stride):
         super().__init__(ResnetBlock2dOF(cin, cout, stride), ResnetBlock2dOF(cout, cout))
+        self._chain_params = ParamCache(rb_of_chain_params)
 
     def forward(self, x):
         first, second = self
         if first.stride == 1:
-            return rb_of_chain(x, [first.chain_args(), second.chain_args()])
-        return rb_of_chain(first(x), [second.chain_args()])
+            blocks = [first.chain_args(), second.chain_args()]
+        else:
+            x, blocks = first(x), [second.chain_args()]
+        return rb_of_chain(x, blocks, params=self._chain_params(x, blocks))
 
 
 class MotionHead(nn.Sequential):
@@ -88,14 +92,15 @@ class MotionHead(nn.Sequential):
             ConvBN3d(c, c, (1, 3, 3), padding=(0, 1, 1)), nn.ReLU(),
             Conv3d(c, 3, (1, 3, 3), padding=(0, 1, 1), bias=True))
         self.fused = fused
+        self._chain_params = ParamCache(motion_head_params)
 
     def forward(self, volume):
         """volume ``(B, c + 2, N, H, W)`` -> motion ``(B, N_MOTION, 3)``."""
         if self.fused:
-            y = motion_head_conv_chain(
-                volume, self[0][0].weight, self[0][1].fused_affine(),
-                self[2][0].weight, self[2][1].fused_affine(),
-                self[4][0].weight, self[4][1].fused_affine(), self[6].weight, self[6].bias)
+            args = (self[0][0].weight, self[0][1].fused_affine(),
+                    self[2][0].weight, self[2][1].fused_affine(),
+                    self[4][0].weight, self[4][1].fused_affine(), self[6].weight, self[6].bias)
+            y = motion_head_conv_chain(volume, *args, params=self._chain_params(volume, *args))
         else:
             y = super().forward(volume)
         return adaptive_avg_pool_focus(y, N_MOTION)[:, :, :, 0, 0].transpose(1, 2)

@@ -26,7 +26,8 @@ import torch
 from torch import nn
 
 from dffx_torch.ops import batch_norm, bn_fused_affine, conv3d, deconv3d
-from dffx_torch.ops.kernels import fm_conv_bn_relu, rb2d_residual, srd_attention_residual
+from dffx_torch.ops.kernels import (ParamCache, fm_conv_bn_relu, fm_conv_params, rb2d_residual,
+                                    srd_attention_residual, tensor_stamp)
 
 
 class Conv3d(nn.Conv3d):
@@ -65,11 +66,20 @@ class BatchNorm3d(nn.BatchNorm3d):
         return batch_norm(x, self.running_mean, self.running_var, self.weight,
                           self.bias, eps=self.eps)
 
+    _affine_key = _affine = None
+
     def fused_affine(self):
-        """The fused fp32 (scale, shift) the kernels take."""
+        """The fused fp32 (scale, shift) the kernels take: the same two
+        tensors from call to call until a statistic or an affine parameter
+        changes (``tensor_stamp``), so that a ``ParamCache`` can tell."""
         self._eval_only()
-        return bn_fused_affine(self.weight, self.bias, self.running_mean,
-                               self.running_var, self.eps)
+        src = (self.weight, self.bias, self.running_mean, self.running_var)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in src):
+            return bn_fused_affine(*src, self.eps)  # part of a graph: not kept
+        key = tuple(map(tensor_stamp, src))
+        if key != self._affine_key:
+            self._affine, self._affine_key = bn_fused_affine(*src, self.eps), key
+        return self._affine
 
 
 class ConvBN3d(nn.Sequential):
@@ -148,10 +158,12 @@ class FMModule(nn.Module):
             ConvBN3d(3, 8, (1, 9, 9), padding=(0, 8, 8), dilation=(1, 2, 2)),
             nn.ReLU(),
             SRD(8))
+        self._conv_params = ParamCache(fm_conv_params)
 
     def forward(self, x):
         conv, _, srd = self.Focus_extraction
-        y = fm_conv_bn_relu(x, conv[0].weight, *conv[1].fused_affine())
+        args = (conv[0].weight, *conv[1].fused_affine())
+        y = fm_conv_bn_relu(x, *args, params=self._conv_params(x, *args))
         rb = srd.Focus_Measure.conv
         f = rb2d_residual(y, rb[0][0].weight, rb[0][1].fused_affine(),
                           rb[2][0].weight, rb[2][1].fused_affine())

@@ -49,8 +49,14 @@ __all__ = [
     "motion_head_conv_chain_ref",
     "fma_conv_layout",
     "mma_conv_layout",
+    "head_conv0_layout",
+    "fm_conv_taps",
+    "fm_conv_layout",
+    "fm_conv_params",
     "rb_of_chain_params",
     "motion_head_params",
+    "ParamCache",
+    "tensor_stamp",
     "launches",
     "reset_launches",
 ]
@@ -117,13 +123,15 @@ def _cuda_args(x: torch.Tensor, c_ok=None, bn_in_grid: bool = True):
 
 @functools.lru_cache(maxsize=None)
 def _gather_index(shapes: tuple, layouts: tuple, device: torch.device) -> torch.Tensor:
-    """Where each packed entry sits in the concatenation of the flat tensors."""
+    """Where each packed entry sits in the concatenation of the flat tensors;
+    a layout's padding (-1) points at the 0 that ``_packed`` appends."""
     parts, off = [], 0
     for shape, layout in zip(shapes, layouts):
         idx = torch.arange(off, off + math.prod(shape)).view(shape)
         parts.append(layout(idx) if layout else idx.reshape(-1))
         off += idx.numel()
-    return torch.cat(parts).to(device)
+    index = torch.cat(parts)
+    return torch.where(index < 0, off, index).to(device)
 
 
 def _packed(x: torch.Tensor, tensors, layouts) -> torch.Tensor:
@@ -131,27 +139,150 @@ def _packed(x: torch.Tensor, tensors, layouts) -> torch.Tensor:
     as it is), back to back in one fp32 buffer on x's card.  One
     concatenation and one gather: the host's work per call stays two
     launches."""
-    flat = torch.cat([t.reshape(-1) for t in tensors]).float()
+    flat = torch.cat([t.reshape(-1) for t in (*tensors, tensors[0].new_zeros(1))]).float()
     if flat.device != x.device:
         raise ValueError(f"parameters on {flat.device}, activations on {x.device}")
     return flat.take(_gather_index(tuple(tuple(t.shape) for t in tensors), tuple(layouts),
                                    x.device))
 
 
+def tensor_stamp(t: torch.Tensor) -> tuple:
+    """What tells that a tensor is still the one seen before, unchanged: its
+    identity, address and version counter (an inference tensor has none and
+    cannot be written in place outside inference mode)."""
+    return (id(t), t.data_ptr(), None if t.is_inference() else t._version)
+
+
+def _tensors(args):
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            yield a
+        else:
+            yield from _tensors(a)
+
+
+class ParamCache:
+    """The packed parameter buffer of one call site of a kernel, packed again
+    only when the device or one of the source tensors changes.
+
+    Eval weights are constants, and packing them (``fm_conv_params``,
+    ``rb_of_chain_params``, ``motion_head_params``) costs the host about
+    0.1 ms a call, which a small image or an idle card shows.  A module keeps
+    one ``ParamCache(pack)`` per kernel it calls and hands ``cache(x, *args)``
+    to the wrapper as ``params``; for a CPU tensor that is ``None`` (the twin
+    takes the weights as they are).  The sources are recognised by
+    ``tensor_stamp`` and kept alive here, so a write through ``.data`` at the
+    same address goes unseen: call ``clear()`` after one."""
+
+    def __init__(self, pack):
+        self._pack = pack
+        self.clear()
+
+    def clear(self) -> None:
+        self._key = self._held = self._buf = None
+
+    def __call__(self, x: torch.Tensor, *args):
+        if x.device.type != "cuda":
+            return None
+        held = list(_tensors(args))
+        key = (x.device, *map(tensor_stamp, held))
+        if key != self._key:
+            self._buf = self._pack(x, *args)
+            self._key, self._held = key, held
+        return self._buf
+
+
+def _use_params(params, x: torch.Tensor, tensors, layouts) -> torch.Tensor:
+    """The packed buffer a launch reads: the caller's (``ParamCache``), after
+    a check of its device, type and size, or one packed now."""
+    if params is None:
+        return _packed(x, tensors, layouts)
+    want = _gather_index(tuple(tuple(t.shape) for t in tensors), tuple(layouts),
+                         x.device).numel()
+    if (params.device != x.device or params.dtype != torch.float32
+            or not params.is_contiguous() or params.numel() != want):
+        raise ValueError(f"params: expected {want} contiguous float32 on {x.device}, got "
+                         f"{params.numel()} {params.dtype} on {params.device}")
+    return params
+
+
 def fma_conv_layout(w: torch.Tensor) -> torch.Tensor:
-    """Conv weight ``(Cout, Cin, 1, kh, kw)`` as the FMA kernels read it
-    (``csrc/chain.cuh``): flat ``[cin][tap][cout]``, tap = ky * kw + kx."""
+    """Conv weight ``(Cout, Cin, 1, kh, kw)`` as the FMA kernel reads it
+    (``csrc/chain.cuh``, the 3 -> 8 -> 8 pair of ``rb_of_chain``): flat
+    ``[cin][tap][cout]``, tap = ky * kw + kx."""
     return w.permute(1, 2, 3, 4, 0).reshape(-1)
 
 
+def _pad_value(w: torch.Tensor) -> int:
+    """What a layout pads with: 0 in a weight, -1 in a tensor of indices
+    (``_gather_index`` sends those to a 0)."""
+    return 0 if w.is_floating_point() else -1
+
+
+def _b_fragments(wk: torch.Tensor) -> torch.Tensor:
+    """``(Cout, K)``, both multiples of 8, as B fragments of ``mma.sync``
+    m16n8k8 (``csrc/mma.cuh``): flat ``[K // 8][Cout // 8][lane][2]``, where
+    entry (lane, j) holds k = 8 ks + 4 j + lane % 4 and cout = 8 nb + lane // 4."""
+    co, k = wk.shape
+    return (wk.reshape(co // 8, 8, k // 8, 2, 4)   # nb, g, ks, j, t
+            .permute(2, 0, 1, 4, 3).reshape(-1))   # ks, nb, g, t, j
+
+
 def mma_conv_layout(w: torch.Tensor) -> torch.Tensor:
-    """Conv weight ``(Cout, Cin, 1, kh, kw)`` as B fragments of ``mma.sync``
-    m16n8k8 (``csrc/rb_of.cu``): flat ``[tap][cin // 8][cout // 8][lane][2]``,
-    where entry (lane, j) holds cin = 8 kc + 4 j + lane % 4 and cout = 8 nb +
-    lane // 4.  Cin and Cout are multiples of 8."""
+    """Conv weight ``(Cout, Cin, 1, kh, kw)`` as B fragments: flat
+    ``[tap][cin // 8][cout // 8][lane][2]``, k = tap * Cin + cin.  Cin and
+    Cout are padded to multiples of 8 (zero weights)."""
     co, ci = w.shape[:2]
-    return (w.reshape(co // 8, 8, ci // 8, 2, 4, -1)   # nb, g, kc, j, t, tap
-            .permute(5, 2, 0, 1, 4, 3).reshape(-1))    # tap, kc, nb, g, t, j
+    w = F.pad(w.reshape(co, ci, -1), (0, 0, 0, -ci % 8, 0, -co % 8), value=_pad_value(w))
+    return _b_fragments(w.permute(0, 2, 1).reshape(w.shape[0], -1))
+
+
+def head_conv0_layout(w: torch.Tensor) -> torch.Tensor:
+    """The motion head's first conv ``(16, 18, 1, 3, 3)`` as ``csrc/
+    motion_head.cu`` reads it: channels 0..15 in ``mma_conv_layout`` (18
+    k-steps), then channels 16 and 17 as three k-steps of their own, k =
+    9 (cin - 16) + tap, padded from 18 to 24."""
+    co = w.shape[0]
+    tail = F.pad(w[:, 16:].reshape(co, -1), (0, 6), value=_pad_value(w))
+    return torch.cat([mma_conv_layout(w[:, :16]), _b_fragments(tail)])
+
+
+def fm_conv_taps() -> torch.Tensor:
+    """The K order of ``csrc/fm_conv.cu``: 248 entries, each the flat tap
+    ``(cin * 9 + ky) * 9 + kx`` of the ``(3, 9, 9)`` kernel or -1 (padding).
+    k-steps 0..26: one (cin, ky) each, kx = 0..7; 27..29: kx = 8 of one cin, ky
+    = 0..7; 30: (8, 8) of the three cin, then five of padding."""
+    c, ky, kx = torch.meshgrid(torch.arange(3), torch.arange(9), torch.arange(9), indexing="ij")
+    flat = (c * 9 + ky) * 9 + kx
+    return torch.cat([flat[:, :, :8].reshape(-1), flat[:, :8, 8].reshape(-1), flat[:, 8, 8],
+                      torch.full((5,), -1)])
+
+
+def fm_conv_layout(w: torch.Tensor) -> torch.Tensor:
+    """The focus-measure conv ``(8, 3, 1, 9, 9)`` as B fragments in
+    ``fm_conv_taps`` order: flat ``[31][lane][2]``."""
+    wk = F.pad(w.reshape(8, 243), (0, 1), value=_pad_value(w))  # column 243: the padding
+    return _b_fragments(wk[:, fm_conv_taps()])
+
+
+def _pad_to_4(v: torch.Tensor) -> torch.Tensor:
+    return F.pad(v, (0, -v.numel() % 4), value=_pad_value(v))
+
+
+def _fm_conv_plan(w, scale, shift):
+    return (w, scale, shift), (fm_conv_layout, None, None)
+
+
+def fm_conv_params(x: torch.Tensor, w, scale, shift) -> torch.Tensor:
+    """The fp32 buffer ``csrc/fm_conv.cu`` reads, on x's device: w in
+    ``fm_conv_layout``, scale, shift."""
+    return _packed(x, *_fm_conv_plan(w, scale, shift))
+
+
+def _rb_of_chain_plan(blocks: Sequence[OFBlock]):
+    layout = fma_conv_layout if blocks[0][0].shape[1] % 8 else mma_conv_layout
+    return ([t for w1, aff1, w2, aff2, ws in blocks for t in (w1, *aff1, w2, *aff2, ws)],
+            [layout, None, None, layout, None, None, layout] * len(blocks))
 
 
 def rb_of_chain_params(x: torch.Tensor, blocks: Sequence[OFBlock]) -> torch.Tensor:
@@ -159,9 +290,7 @@ def rb_of_chain_params(x: torch.Tensor, blocks: Sequence[OFBlock]) -> torch.Tens
     s1, b1, w2, s2, b2, ws, the convs in ``fma_conv_layout`` for the 3 -> 8 -> 8
     pair (FMA design) and in ``mma_conv_layout`` for a 16 -> 16 or 32 -> 32
     block (tensor cores)."""
-    layout = fma_conv_layout if blocks[0][0].shape[1] % 8 else mma_conv_layout
-    return _packed(x, [t for w1, aff1, w2, aff2, ws in blocks for t in (w1, *aff1, w2, *aff2, ws)],
-                   [layout, None, None, layout, None, None, layout] * len(blocks))
+    return _packed(x, *_rb_of_chain_plan(blocks))
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -185,9 +314,11 @@ def fm_conv_bn_relu_ref(x, w, scale, shift):
 
 
 def fm_conv_bn_relu(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-                    shift: torch.Tensor) -> torch.Tensor:
+                    shift: torch.Tensor, *, params: torch.Tensor | None = None) -> torch.Tensor:
     """x ``(B, 3, N, H, W)``, w ``(8, 3, 1, 9, 9)``, scale/shift ``(8,)`` ->
-    ``(B, 8, N, H, W)`` in x.dtype.  Any H, W >= 1."""
+    ``(B, 8, N, H, W)`` in x.dtype.  Any B, N, H, W >= 1.  ``params``: the
+    same weights already packed (``fm_conv_params``, kept by a ``ParamCache``);
+    without it they are packed on this call."""
     _check_act(x, 3)
     _check_param(w, (8, 3, 1, 9, 9), "w")
     _check_param(scale, (8,), "scale")
@@ -196,14 +327,13 @@ def fm_conv_bn_relu(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         return fm_conv_bn_relu_ref(x, w, scale, shift)
     if x.device.type != "cuda":
         raise _unsupported(x)
-    lib, stream = _cuda_args(x)
+    lib, stream = _cuda_args(x, bn_in_grid=False)
     b, _, n, h, wd = x.shape
-    w, scale, shift = (_param(t, x) for t in (w, scale, shift))
+    params = _use_params(params, x, *_fm_conv_plan(w, scale, shift))
     y = torch.empty((b, 8, n, h, wd), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.dffx_fm_conv_bn_relu(
-            x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(), y.data_ptr(),
-            b, n, h, wd, _DTYPES[x.dtype], stream)
+            x.data_ptr(), params.data_ptr(), y.data_ptr(), b, n, h, wd, _DTYPES[x.dtype], stream)
     _raise_on(err, "fm_conv_bn_relu")
     launches["fm_conv_bn_relu"] += 1
     return y
@@ -303,15 +433,17 @@ def rb_of_chain_ref(x, blocks: Sequence[OFBlock]):
     return x
 
 
-def rb_of_chain(x: torch.Tensor, blocks: Sequence[OFBlock]) -> torch.Tensor:
+def rb_of_chain(x: torch.Tensor, blocks: Sequence[OFBlock], *,
+                params: torch.Tensor | None = None) -> torch.Tensor:
     """Consecutive stride-1 ``resnet_block_2d_OF``s in one launch.
 
     x ``(B, Cin, N, H, W)``; per block w1 ``(Cout, Cin, 1, 3, 3)``, w2
     ``(Cout, Cout, 1, 3, 3)``, the 1x1 projection shortcut ws ``(Cout, Cin, 1,
     1, 1)``, all bias-free, and aff = fp32 (scale, shift) ``(Cout,)``.  The
     kernel takes the chains (3->8, 8->8), (16->16) and (32->32) and any
-    B, N, H, W >= 1; the twin takes any chain.  The weights are repacked on
-    every call (``rb_of_chain_params``)."""
+    B, N, H, W >= 1; the twin takes any chain.  ``params``: the same blocks
+    already packed (``rb_of_chain_params``, kept by a ``ParamCache``); without
+    it they are packed on this call."""
     _check_act(x)
     if not blocks:
         raise ValueError("rb_of_chain needs at least one block")
@@ -334,7 +466,7 @@ def rb_of_chain(x: torch.Tensor, blocks: Sequence[OFBlock]) -> torch.Tensor:
         raise ValueError(f"kernel built for chains {_RB_OF_CHAINS}, got {tuple(chans)}")
     lib, stream = _cuda_args(x, bn_in_grid=False)
     b, _, n, h, wd = x.shape
-    params = rb_of_chain_params(x, blocks)
+    params = _use_params(params, x, *_rb_of_chain_plan(blocks))
     y = torch.empty((b, cin, n, h, wd), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.dffx_rb_of_chain(
@@ -361,24 +493,34 @@ def motion_head_conv_chain_ref(x, w0, aff0: Affine, w1, aff1: Affine, w2, aff2: 
     return (y + _view(bias3.float())).to(x.dtype)
 
 
+def _motion_head_plan(w0, aff0: Affine, w1, aff1: Affine, w2, aff2: Affine, w3, bias3):
+    return ((w0, *aff0, w1, *aff1, w2, *aff2, w3, bias3),
+            (head_conv0_layout, None, None, mma_conv_layout, None, None,
+             mma_conv_layout, None, None, mma_conv_layout, _pad_to_4))
+
+
 def motion_head_params(x, w0, aff0: Affine, w1, aff1: Affine, w2, aff2: Affine, w3, bias3
                        ) -> torch.Tensor:
     """The fp32 buffer ``csrc/motion_head.cu`` reads, on x's device: w0, s0, b0,
-    w1, s1, b1, w2, s2, b2, w3, bias3, the convs in ``fma_conv_layout``."""
-    return _packed(x, (w0, *aff0, w1, *aff1, w2, *aff2, w3, bias3),
-                   [fma_conv_layout, None, None] * 3 + [fma_conv_layout, None])
+    w1, s1, b1, w2, s2, b2, w3, bias3: w0 in ``head_conv0_layout``, the other
+    convs in ``mma_conv_layout`` (w3's 3 output channels padded to 8), bias3
+    padded to 4."""
+    return _packed(x, *_motion_head_plan(w0, aff0, w1, aff1, w2, aff2, w3, bias3))
 
 
 def motion_head_conv_chain(x: torch.Tensor, w0: torch.Tensor, aff0: Affine,
                            w1: torch.Tensor, aff1: Affine, w2: torch.Tensor, aff2: Affine,
-                           w3: torch.Tensor, bias3: torch.Tensor) -> torch.Tensor:
+                           w3: torch.Tensor, bias3: torch.Tensor, *,
+                           params: torch.Tensor | None = None) -> torch.Tensor:
     """The eval motion head before its pooling: three (1,3,3) pad-1 conv + BN
     + ReLU and a biased (1,3,3) conv to 3 channels.
 
     x ``(B, Cin, N, H, W)``; w0 ``(C, Cin, 1, 3, 3)``; w1/w2 ``(C, C, 1, 3,
     3)``; w3 ``(3, C, 1, 3, 3)``; aff = fp32 (scale, shift) ``(C,)``; bias3
     ``(3,)``.  Returns ``(B, 3, N, H, W)``.  The kernel takes (Cin, C) =
-    (18, 16), the full-resolution conv3 head, and any H, W >= 1."""
+    (18, 16), the full-resolution conv3 head, and any B, N, H, W >= 1.
+    ``params``: the same weights already packed (``motion_head_params``, kept
+    by a ``ParamCache``); without it they are packed on this call."""
     _check_act(x)
     cin, c = x.shape[1], w0.shape[0]
     _check_param(w0, (c, cin, 1, 3, 3), "w0")
@@ -395,9 +537,10 @@ def motion_head_conv_chain(x: torch.Tensor, w0: torch.Tensor, aff0: Affine,
         raise _unsupported(x)
     if (cin, c) not in _MOTION_HEAD_WIDTHS:
         raise ValueError(f"kernel built for (Cin, C) in {_MOTION_HEAD_WIDTHS}, got {(cin, c)}")
-    lib, stream = _cuda_args(x)
+    lib, stream = _cuda_args(x, bn_in_grid=False)
     b, _, n, h, wd = x.shape
-    params = motion_head_params(x, w0, aff0, w1, aff1, w2, aff2, w3, bias3)
+    params = _use_params(params, x,
+                         *_motion_head_plan(w0, aff0, w1, aff1, w2, aff2, w3, bias3))
     y = torch.empty((b, 3, n, h, wd), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.dffx_motion_head_conv_chain(

@@ -150,14 +150,17 @@ def test_ragged_shapes_match_xla_formula(rng):
 
 
 def _tf32(t):
-    """fp32 rounded to TF32 as cvt.rna.tf32.f32 rounds it: to nearest, ties
-    away from zero, the 13 low mantissa bits cleared."""
-    return ((t.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+    """The TF32 the tensor cores read from an fp32: its 13 low mantissa bits
+    cleared."""
+    return (t.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
 
 
 def _conv_tf32(x, w, pad, split):
-    """conv3d with TF32 operands and an fp32 sum: plain (hi . hi) or 3xTF32
-    (hi . hi, plus hi . lo + lo . hi summed apart, as csrc/rb_of.cu does)."""
+    """conv3d as csrc/mma.cuh's k-step computes it (split_tf32), with an fp32
+    sum: plain TF32 (hi . hi) or 3xTF32.  The hi part is the value with its 13
+    low mantissa bits cleared; the low part stays fp32 and the tensor cores
+    drop its 13 low mantissa bits; hi . lo + lo . hi are summed apart from
+    hi . hi."""
     xh, wh = _tf32(x), _tf32(w)
     y = F.conv3d(xh, wh, padding=pad)
     if split:
@@ -225,20 +228,73 @@ def test_packed_weights_read_back_as_torch_weights(rng, chans):
     assert off == packed.size
 
 
-def test_motion_head_weights_read_back_as_torch_weights(rng):
+def _read_fragments(section, co, k):
+    """B fragments [k // 8][co // 8][lane][2] (csrc/mma.cuh) back to (co, k)."""
+    ks, nb, lane, j = np.indices((k // 8, co // 8, 32, 2)).reshape(4, -1)
+    w = np.full((co, k), np.nan, np.float32)
+    w[nb * 8 + lane // 4, ks * 8 + 4 * j + lane % 4] = section
+    return w
+
+
+def _head_args(rng, scale=0.2):
     x, ws, bns, bias3 = _head_inputs(rng, 1, 2, 5, 7)
-    args = [_w(ws[0]), _taff(bns[0]), _w(ws[1]), _taff(bns[1]), _w(ws[2]), _taff(bns[2]),
-            _w(ws[3]), torch.from_numpy(bias3)]
-    packed = tk.motion_head_params(_t(x), *args).numpy()
-    off = 0
-    for t in (args[0], *args[1], args[2], *args[3], args[4], *args[5], args[6], args[7]):
-        n = t.numel()
-        got = packed[off:off + n]
-        if t.dim() == 5:
-            got = _read_fma(got, t.shape[0], t.shape[1], 9)
-        np.testing.assert_array_equal(got, t.reshape(got.shape).numpy())
-        off += n
-    assert off == packed.size
+    ws = [w * (scale / 0.2) for w in ws]
+    return x, [_w(ws[0]), _taff(bns[0]), _w(ws[1]), _taff(bns[1]), _w(ws[2]), _taff(bns[2]),
+               _w(ws[3]), torch.from_numpy(bias3)]
+
+
+def _read_head(packed):
+    """motion_head_params' buffer as csrc/motion_head.cu reads it, back to
+    (cout, cin, tap) convs with the kernel's padding: w0 as its 16 main channels
+    and the (16, 24) tail of channels 16 and 17, w3 with 8 output channels."""
+    sizes = [18 * 128, 3 * 128, 16, 16, 18 * 128, 16, 16, 18 * 128, 16, 16, 18 * 64, 4]
+    assert sum(sizes) == packed.size and packed.size % 4 == 0
+    w0, tail, s0, b0, w1, s1, b1, w2, s2, b2, w3, bias = np.split(packed, np.cumsum(sizes)[:-1])
+    return (_read_mma(w0, 16, 16, 9), _read_fragments(tail, 16, 24), (s0, b0),
+            _read_mma(w1, 16, 16, 9), (s1, b1), _read_mma(w2, 16, 16, 9), (s2, b2),
+            _read_mma(w3, 8, 16, 9), bias)
+
+
+def test_motion_head_weights_read_back_as_torch_weights(rng):
+    x, args = _head_args(rng)
+    w0, tail, a0, w1, a1, w2, a2, w3, bias = _read_head(tk.motion_head_params(_t(x), *args).numpy())
+    t0 = args[0].reshape(16, 18, 9).numpy()
+    np.testing.assert_array_equal(w0, t0[:, :16])
+    np.testing.assert_array_equal(tail[:, :18], t0[:, 16:].reshape(16, 18))  # k = 9 (c - 16) + tap
+    np.testing.assert_array_equal(tail[:, 18:], 0)
+    for got, want in ((w1, args[2]), (w2, args[4])):
+        np.testing.assert_array_equal(got, want.reshape(16, 16, 9).numpy())
+    np.testing.assert_array_equal(w3[:3], args[6].reshape(3, 16, 9).numpy())
+    np.testing.assert_array_equal(w3[3:], 0)  # Cout 3 padded to one n-tile of 8
+    for got, want in ((a0, args[1]), (a1, args[3]), (a2, args[5])):
+        np.testing.assert_array_equal(got[0], want[0].numpy())
+        np.testing.assert_array_equal(got[1], want[1].numpy())
+    np.testing.assert_array_equal(bias, np.append(args[7].numpy(), 0))
+
+
+def test_motion_head_3xtf32_plan_holds_the_fp32_bound():
+    """The head's four convs as the kernel runs them, emulated on the CPU from
+    the packed buffer (conv0's tail k-steps, conv3's padded n-tile), at a
+    ragged shape with non-zero BN shifts and chip_smoke.py's weight scale:
+    3xTF32 is within 1e-4 of the twin, plain TF32 is not."""
+    g = np.random.default_rng(5)
+    x, args = _head_args(g, scale=0.1)
+    x = torch.from_numpy(g.uniform(-1, 1, (2, 18, 3, 13, 21)).astype(np.float32))
+    ref = tk.motion_head_conv_chain_ref(x, *args)
+    w0, tail, a0, w1, a1, w2, a2, w3, bias = _read_head(tk.motion_head_params(x, *args).numpy())
+    w0 = np.concatenate([w0, tail[:, :18].reshape(16, 2, 9)], axis=1)
+    convs = [torch.from_numpy(w.reshape(w.shape[0], -1, 1, 3, 3)) for w in (w0, w1, w2, w3)]
+    v = tk._view
+    errs = {}
+    for split in (False, True):
+        y = x
+        for w, (sc, sh) in zip(convs[:3], (a0, a1, a2)):
+            y = torch.relu(_conv_tf32(y, w, (0, 1, 1), split) * v(torch.from_numpy(sc))
+                           + v(torch.from_numpy(sh)))
+        y = _conv_tf32(y, convs[3], (0, 1, 1), split)
+        assert bool((y[:, 3:] == 0).all())  # the n-tile's padded channels
+        errs[split] = (y[:, :3] + v(torch.from_numpy(bias[:3])) - ref).abs().max().item()
+    assert errs[True] <= 1e-4 < errs[False], errs
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(rng):

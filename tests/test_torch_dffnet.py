@@ -172,7 +172,7 @@ def golden_inputs():
 
 def test_forward_matches_stored_goldens():
     fs, fd = golden_inputs()
-    net = load_params_auto(7)
+    net = load_params_auto(7, device="cpu")
     with torch.no_grad():
         mid, _, _, pred3 = net(torch.from_numpy(fs), torch.from_numpy(fd))
     ref = np.load(GOLDEN)
@@ -197,16 +197,16 @@ def test_load_params_auto_from_pth_and_seed(tmp_path, params):
     path = tmp_path / "check_point.pth"
     torch.save({f"module.{k}": v for k, v in net.state_dict().items()}, path)
     assert set(load_torch_checkpoint(str(path))) == set(net.state_dict())
-    loaded = load_params_auto(str(path))
+    loaded = load_params_auto(str(path), device="cpu")
     assert not loaded.training
     for k, v in net.state_dict().items():
         assert torch.equal(loaded.state_dict()[k], v), k
     with pytest.raises(FileNotFoundError):
-        load_params_auto(str(tmp_path / "missing.pth"))
+        load_params_auto(str(tmp_path / "missing.pth"), device="cpu")
 
 
 def test_timed_forward_counts_samples(rng):
-    net = load_params_auto(0)
+    net = load_params_auto(0, device="cpu")
     tf = TimedForward(net)
     fs = rng.uniform(-1, 1, (2, 3, 32, 32, 3)).astype(np.float32)
     fd = np.tile(np.linspace(0.1, 1.0, 3, dtype=np.float32), (2, 1))

@@ -158,6 +158,56 @@ def test_rb_of_chain_persistent_grid_matches_twin(cuda, rng, chans, shape):
     torch.testing.assert_close(got, tk.rb_of_chain_ref(x, blocks), atol=1e-4, rtol=0)
 
 
+def _bf16_bound(ref):
+    """bf16 in, fp32 inside: half a bf16 ulp (< 2^-8 |max|) of the fp32 twin, plus
+    1e-4 for the order of the fp32 sums."""
+    return 2.0 ** -8 * ref.abs().max().item() + 1e-4
+
+
+#: the persistent grids of fm_conv_bn_relu and motion_head_conv_chain: more tiles
+#: than blocks; H and W no multiple of the tile or of 4; less than one tile
+GRID_SHAPES = [(2, 10, 304, 544), (1, 3, 45, 101), (1, 1, 3, 50)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,n,h,w", GRID_SHAPES, ids=["many_tiles", "odd", "strip"])
+def test_fm_conv_persistent_grid_matches_twin(cuda, rng, b, n, h, w, dtype):
+    x = _act(rng, (b, 3, n, h, w), cuda).to(dtype)
+    args = (_wt(rng, (8, 3, 1, 9, 9), cuda), *_aff(rng, 8, cuda))
+    got = tk.fm_conv_bn_relu(x, *args)
+    torch.cuda.synchronize()
+    assert tk.launches["fm_conv_bn_relu"] == 1 and got.dtype == dtype
+    ref = tk.fm_conv_bn_relu_ref(x.float(), *args)
+    bound = 1e-4 if dtype == torch.float32 else _bf16_bound(ref)
+    assert (got.float() - ref).abs().max().item() <= bound
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,n,h,w", GRID_SHAPES, ids=["many_tiles", "odd", "strip"])
+def test_motion_head_persistent_grid_matches_twin(cuda, rng, b, n, h, w, dtype):
+    x, *args = _head_args(rng, b, n, h, w, cuda)
+    x = x.to(dtype)
+    got = tk.motion_head_conv_chain(x, *args)
+    torch.cuda.synchronize()
+    assert tk.launches["motion_head_conv_chain"] == 1 and got.dtype == dtype
+    ref = tk.motion_head_conv_chain_ref(x.float(), *args)
+    bound = 1e-4 if dtype == torch.float32 else _bf16_bound(ref)
+    assert (got.float() - ref).abs().max().item() <= bound
+
+
+def test_fm_conv_and_motion_head_take_more_than_65535_slices(cuda, rng):
+    """B * N is no grid dimension of their launches."""
+    x = _act(rng, (1, 3, 65537, 2, 3), cuda)
+    args = (_wt(rng, (8, 3, 1, 9, 9), cuda), *_aff(rng, 8, cuda))
+    got = tk.fm_conv_bn_relu(x, *args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, tk.fm_conv_bn_relu_ref(x, *args), atol=1e-4, rtol=0)
+    args = _head_args(rng, 1, 65537, 2, 3, cuda)
+    got = tk.motion_head_conv_chain(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, tk.motion_head_conv_chain_ref(*args), atol=1e-4, rtol=0)
+
+
 @pytest.mark.parametrize("chans", CHAINS, ids=["fe1_pair", "c16", "c32"])
 def test_rb_of_chain_takes_more_than_65535_slices(cuda, rng, chans):
     """B * N is no grid dimension of rb_of_chain's launches."""
@@ -198,7 +248,7 @@ def test_network_on_the_card_matches_cpu(cuda, rng):
     assert isinstance(net, Network)
     with torch.inference_mode():
         got = net(fs.to(cuda), fd.to(cuda))
-        ref = load_params_auto(0)(fs, fd)
+        ref = load_params_auto(0, device="cpu")(fs, fd)
     assert {k: tk.launches[k] for k in DFFNET_KERNELS} == dict.fromkeys(DFFNET_KERNELS, 1)
     assert tk.launches["rb_of_chain"] == tk.launches["motion_head_conv_chain"] == 0
     for g, r in zip(got, ref):
@@ -215,7 +265,28 @@ def test_e2e_network_on_the_card_matches_cpu(cuda, rng):
     assert isinstance(net, E2ENetwork)
     with torch.inference_mode():
         got = net(fs.to(cuda), fd.to(cuda), fovs.to(cuda))
-        ref = load_params_auto(0, e2e=True)(fs, fd, fovs)
+        ref = load_params_auto(0, device="cpu", e2e=True)(fs, fd, fovs)
     assert tk.launches == E2E_LAUNCHES
     for g, r in zip(got, ref):
         torch.testing.assert_close(g.cpu(), r, atol=1e-4, rtol=0)
+
+
+def test_kept_parameters_follow_the_weights(cuda, rng):
+    """The modules keep their kernels' packed weights between forwards; new
+    weights (a state dict loaded in place) reach the next forward."""
+    from dffx_torch.eval import load_params_auto
+
+    fs = torch.from_numpy(rng.uniform(-1, 1, (1, 10, 64, 96, 3)).astype(np.float32)).to(cuda)
+    fd = torch.from_numpy(np.linspace(0.1, 1.5, 10, dtype=np.float32)[None]).to(cuda)
+    fovs = torch.from_numpy(np.linspace(1.0, 1.05, 10, dtype=np.float32)[None]).to(cuda)
+    net, other = (load_params_auto(s, device=cuda, e2e=True) for s in (0, 1))
+    with torch.inference_mode():
+        first, again, want = net(fs, fd, fovs), net(fs, fd, fovs), other(fs, fd, fovs)
+    for a, b in zip(first, again):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)  # two forwards are not bit-equal
+    net.load_state_dict(other.state_dict())
+    with torch.inference_mode():
+        got = net(fs, fd, fovs)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+    assert (got[3] - first[3]).abs().max().item() > 1e-3

@@ -65,12 +65,30 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
 def test_sources_are_the_three_kernels():
     names = {p.name for p in _build.sources()}
     assert {"fm_conv.cu", "rb2d.cu", "srd_attention.cu", "rb_of.cu", "motion_head.cu",
-            "common.cuh", "chain.cuh"} <= names
+            "common.cuh", "chain.cuh", "mma.cuh"} <= names
     for p in _build.sources():
         if p.suffix == ".cu":
             text = p.read_text()
             assert "Replaces the TPU kernel dffx/ops/pallas_kernels.py::" in text, p
             assert "What bounds it on the card" in text, p
+
+
+def test_load_params_auto_defaults_to_the_card():
+    """The entry point runs on the GPU unless asked for the CPU: its default
+    device is "cuda", and where there is no card it raises; it does not
+    carry on on the CPU."""
+    import inspect
+
+    from dffx_torch.eval import load_params_auto
+
+    assert inspect.signature(load_params_auto).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        net = load_params_auto(0)
+        assert next(net.parameters()).device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            load_params_auto(0)
+    assert next(load_params_auto(0, device="cpu").parameters()).device.type == "cpu"
 
 
 def test_cpu_tensors_never_touch_the_library(monkeypatch):

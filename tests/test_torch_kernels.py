@@ -143,6 +143,88 @@ def test_ragged_shape_matches_xla_formula(rng):
     _no_launches()
 
 
+def _tf32_trunc(t):
+    """An fp32 value's TF32 bits, its 13 low mantissa bits dropped: the hi part
+    of csrc/mma.cuh's split, and what the tensor cores read of an fp32 operand."""
+    return (t.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _read_fragments(section, co, k):
+    """B fragments [k // 8][co // 8][lane][2] (csrc/mma.cuh) back to (co, k)."""
+    ks, nb, lane, j = np.indices((k // 8, co // 8, 32, 2)).reshape(4, -1)
+    w = np.full((co, k), np.nan, np.float32)
+    w[nb * 8 + lane // 4, ks * 8 + 4 * j + lane % 4] = section
+    return w
+
+
+def test_fm_conv_taps_cover_the_kernel_once():
+    taps = tk.fm_conv_taps().numpy()
+    assert taps.shape == (248,) and (taps[243:] == -1).all()
+    assert sorted(taps[:243]) == list(range(243))
+
+
+def test_fm_conv_weights_read_back_as_torch_weights(rng):
+    x, wk, bn = _fm_inputs(rng, 1, 2, 5, 7)
+    w, (scale, shift) = _w(wk), _taff(bn)
+    packed = tk.fm_conv_params(_t(x), w, scale, shift).numpy()
+    assert packed.size == 31 * 64 + 16
+    got = _read_fragments(packed[:31 * 64], 8, 248)
+    taps = tk.fm_conv_taps().numpy()
+    np.testing.assert_array_equal(got[:, :243], w.reshape(8, 243).numpy()[:, taps[:243]])
+    np.testing.assert_array_equal(got[:, 243:], 0)
+    np.testing.assert_array_equal(packed[31 * 64:], torch.cat([scale, shift]).numpy())
+
+
+def _fm_conv_offsets(sw, p):
+    """Where csrc/fm_conv.cu finds k value (k-step s, k) of a pixel in its
+    input tile (rows sw apart, channel planes p apart), relative to the
+    pixel's own position in the tile; written as the kernel computes it."""
+    off = np.zeros((31, 8), np.int64)
+    k = np.arange(8)
+    for c in range(3):
+        for ky in range(9):
+            off[c * 9 + ky] = c * p + 2 * ky * sw + 2 * k      # kx = k
+        off[27 + c] = c * p + 16 + 2 * k * sw                  # kx = 8, ky = k
+    off[30] = np.minimum(k, 2) * p + 16 * sw + 16              # (8, 8) of channel k < 3
+    return off.reshape(-1)
+
+
+def test_fm_conv_offsets_are_the_packed_taps():
+    sw, p = 52, 1672
+    taps = tk.fm_conv_taps().numpy()[:243]
+    c, ky, kx = taps // 81, taps // 9 % 9, taps % 9
+    np.testing.assert_array_equal(_fm_conv_offsets(sw, p)[:243], c * p + 2 * ky * sw + 2 * kx)
+
+
+def test_fm_conv_3xtf32_plan_holds_the_fp32_bound(rng):
+    """The K = 243 dilated conv as the kernel runs it, emulated on the CPU: A
+    gathered from a zero-padded tile through the kernel's offsets, B from the
+    packed buffer, hi parts cut to TF32's bits, low parts truncated by the
+    tensor cores, hi.lo + lo.hi summed apart.  Within 1e-4 of the twin at a ragged
+    shape; plain TF32 is 20 times further off."""
+    h, wd = 13, 21
+    x, wk, bn = _fm_inputs(rng, 1, 1, h, wd)
+    w, (scale, shift) = _w(wk), _taff(bn)
+    ref = tk.fm_conv_bn_relu_ref(_t(x), w, scale, shift)[0, :, 0]
+    sw = wd + 16
+    p = (h + 16) * sw
+    tile = torch.zeros(3, h + 16, sw)
+    tile[:, 8:8 + h, 8:8 + wd] = _t(x)[0, :, 0]
+    pix = (torch.arange(h)[:, None] * sw + torch.arange(wd)[None]).reshape(-1, 1)
+    off = torch.from_numpy(_fm_conv_offsets(sw, p))
+    a = tile.reshape(-1)[pix + off[None]]                                   # (pixels, 248)
+    packed = tk.fm_conv_params(_t(x), w, scale, shift)
+    b = torch.from_numpy(_read_fragments(packed[:31 * 64].numpy(), 8, 248)).T  # (248, 8)
+    ah, bh = _tf32_trunc(a), _tf32_trunc(b)
+    al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
+    errs = {}
+    for split in (False, True):
+        y = ah @ bh + ((al @ bh + ah @ bl) if split else 0)
+        y = torch.relu(y * scale + shift).T.reshape(8, h, wd)
+        errs[split] = (y - ref).abs().max().item()
+    assert errs[True] <= 1e-4 and errs[False] > 20 * errs[True], errs
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(rng):
     x = torch.zeros(1, 3, 2, 8, 8)
     w, sc, sh = torch.zeros(8, 3, 1, 9, 9), torch.ones(8), torch.zeros(8)
@@ -163,3 +245,64 @@ def test_wrappers_reject_what_the_kernels_do_not_take(rng):
     with pytest.raises(ValueError, match="wn"):
         tk.srd_attention_residual(torch.zeros(1, 8, 2, 8, 8), torch.zeros(8, 8, 1, 1, 1),
                                   torch.zeros(8, 8, 1, 1, 1))
+
+
+def test_param_cache_packs_once_until_a_source_changes():
+    """A module's packed buffer is made once and again only when the device
+    or a source tensor changes; a CPU tensor gets none (its twin takes the
+    weights as they are)."""
+    import types
+
+    packs = []
+
+    def pack(x, w, aff):
+        packs.append(x.device)
+        return torch.cat([w.reshape(-1), *aff])
+
+    cache = tk.ParamCache(pack)
+    on = lambda i: types.SimpleNamespace(device=torch.device("cuda", i))
+    w, aff = torch.ones(2, 3), (torch.zeros(2), torch.ones(2))
+    first = cache(on(0), w, aff)
+    assert cache(on(0), w, aff) is first and len(packs) == 1
+    w.mul_(2)                                   # written in place
+    second = cache(on(0), w, aff)
+    assert len(packs) == 2 and second[0] == 2
+    assert cache(on(0), w, (aff[0], aff[1].clone())) is not second   # a tensor replaced
+    assert len(packs) == 3
+    cache(on(1), w, aff)                        # another card
+    assert len(packs) == 4 and cache(on(1), w, aff) is cache(on(1), w, aff)
+    cache.clear()
+    cache(on(1), w, aff)
+    assert len(packs) == 5
+    assert cache(torch.zeros(1), w, aff) is None and len(packs) == 5
+
+
+def test_fused_affine_is_kept_until_the_statistics_change():
+    from dffx_torch.models.layers import BatchNorm3d
+
+    bn = BatchNorm3d(4).eval()
+    with torch.no_grad():
+        bn.running_mean.add_(0.5)
+        a, b = bn.fused_affine(), bn.fused_affine()
+        assert a[0] is b[0] and a[1] is b[1]
+        bn.running_var.mul_(2.0)
+        c = bn.fused_affine()
+        assert c[0] is not a[0]
+        want = tk.bn_fused_affine(bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
+        torch.testing.assert_close(c, want, rtol=0, atol=0)
+    with torch.inference_mode():
+        assert bn.fused_affine()[0] is c[0]
+    d, e = bn.fused_affine(), bn.fused_affine()   # part of a graph: made anew
+    assert d[0] is not e[0] and d[0].requires_grad
+
+
+def test_wrapper_checks_the_packed_buffer_it_is_given():
+    x = torch.zeros(1, 3, 2, 8, 8)
+    plan = tk._fm_conv_plan(torch.zeros(8, 3, 1, 9, 9), torch.ones(8), torch.zeros(8))
+    good = tk.fm_conv_params(x, *plan[0])
+    assert good.numel() == 31 * 64 + 16
+    assert tk._use_params(good, x, *plan) is good
+    torch.testing.assert_close(tk._use_params(None, x, *plan), good, rtol=0, atol=0)
+    for bad in (good[:-1], good.double(), good.to("meta"), torch.cat([good, good])[::2]):
+        with pytest.raises(ValueError, match="params"):
+            tk._use_params(bad, x, *plan)
