@@ -108,8 +108,8 @@ def bound_ms(name: str, x, *args) -> tuple:
 
 #: the function that packs a kernel's weights into the one buffer it reads, for
 #: the kernels whose modules keep that buffer between forwards (tk.ParamCache)
-PACKERS = {"fm_conv_bn_relu": "fm_conv_params", "rb_of_chain": "rb_of_chain_params",
-           "motion_head_conv_chain": "motion_head_params"}
+PACKERS = {"fm_conv_bn_relu": "fm_conv_params", "rb2d_residual": "rb2d_params",
+           "rb_of_chain": "rb_of_chain_params", "motion_head_conv_chain": "motion_head_params"}
 
 #: launches of each kernel in one forward of each network
 DFFNET_LAUNCHES = {"fm_conv_bn_relu": 1, "rb2d_residual": 1, "srd_attention_residual": 1}
@@ -169,10 +169,14 @@ def kernel_cases(rng, torch, tk, dev):
         yield "fm_conv_bn_relu", tag, (act((b, 3, n, h, w)), wt((8, 3, 1, 9, 9)), *bn(8))
     rb_shapes = [("path", path, 8), ("b4", b4, 8), ("ddff", ddff, 8), ("ragged", ragged, 8),
                  ("ragged", ragged, 16), ("ragged", ragged, 32), ("e2e", e2e, 8)]
-    for tag, (b, n, h, w), c in rb_shapes:
+    grid_shapes = [("many", many, 8), ("odd", odd, 8), ("tiny", tiny, 8), ("slices", slices, 8)]
+    for tag, (b, n, h, w), c in rb_shapes + grid_shapes:
         yield "rb2d_residual", f"{tag}_c{c}", (
             act((b, c, n, h, w)), wt((c, c, 1, 3, 3)), bn(c), wt((c, c, 1, 3, 3)), bn(c))
-    for tag, (b, n, h, w), c in rb_shapes + [("n1", (1, 1, H, W), 8)]:
+    # the attention walks N inside a thread and has B in its block index
+    srd_shapes = rb_shapes + [("n1", (1, 1, H, W), 8), ("slices", slices, 8),
+                              ("batches", (65537, 1, 2, 3), 8)]
+    for tag, (b, n, h, w), c in srd_shapes:
         yield "srd_attention_residual", f"{tag}_c{c}", (
             act((b, c, n, h, w)), wt((c, c, 3, 1, 1)), wt((c, c, 1, 1, 1)))
     # FlowNetwork's three pyramid chains at their resolutions, then ragged
@@ -180,6 +184,8 @@ def kernel_cases(rng, torch, tk, dev):
               ("e2e_fe2", (1, N, EH // 2, EW // 2), ((16, 16),)),
               ("e2e_fe3", (1, N, EH // 4, EW // 4), ((32, 32),))]
     chains += [(f"ragged_c{ch[-1][1]}", ragged, ch) for _, _, ch in chains]
+    chains += [(f"{tag}_fe1", shape, chains[0][2])
+               for tag, shape in (("many", many), ("odd", odd), ("tiny", tiny), ("slices", slices))]
     for tag, (b, n, h, w), ch in chains:
         yield "rb_of_chain", tag, (act((b, ch[0][0], n, h, w)), [
             (wt((co, ci, 1, 3, 3)), bn(co), wt((co, co, 1, 3, 3)), bn(co), wt((co, ci, 1, 1, 1)))

@@ -7,13 +7,14 @@ Every line it prints is one JSON object with the card's name and power limit
 (``nvidia-smi --query-gpu=name,power.limit``).  ``--root`` names the tree whose
 ``dffx_torch`` is imported and built (default: the tree this file is in), so two
 trees can be measured in turns by one command; for that the script itself
-takes both C signatures of ``fm_conv_bn_relu`` (separate weight pointers in the
+takes both C signatures of ``rb2d_residual`` (separate weight pointers in the
 tree before its redesign, one packed buffer now).
 
 * ``kernels``   each kernel against its fp32 twin, fp32 and bf16: the median of
                 single calls through the wrapper and, for the kernels whose
-                wrapper packs the weights, through the wrapper with the packed
-                buffer kept by a ``ParamCache`` (as the modules call it), of
+                wrapper packs the weights in the measured tree, through the
+                wrapper with the packed buffer kept by a ``ParamCache`` (as the
+                modules call it), of
                 single launches of the C entry point alone (weights packed
                 beforehand) and the mean of 20 such launches back to back,
                 CUDA events;
@@ -21,7 +22,8 @@ tree before its redesign, one packed buffer now).
                 around it (a kernel of independent MMAs, built here with nvcc);
 * ``stages``    the end-to-end forward at 1 x 10 x 608 x 1088 by stage (CUDA
                 events at module boundaries), then ``torch.profiler``'s device
-                time by kernel name and the device's busy share;
+                time by kernel name and the device's busy share, for it and
+                for DFFNet alone at 10 x 384 x 384 (batch 1 fp32, batch 4 bf16);
 * ``serving``   ``TimedForward`` at the two serving shapes, fp32 and bf16.
 """
 
@@ -39,8 +41,8 @@ EH, EW = 608, 1088
 
 
 #: the function that packs each kernel's weights, where the wrapper packs them
-PACKERS = {"fm_conv_bn_relu": "fm_conv_params", "rb_of_chain": "rb_of_chain_params",
-           "motion_head_conv_chain": "motion_head_params"}
+PACKERS = {"fm_conv_bn_relu": "fm_conv_params", "rb2d_residual": "rb2d_params",
+           "rb_of_chain": "rb_of_chain_params", "motion_head_conv_chain": "motion_head_params"}
 
 
 def emit(obj) -> None:
@@ -108,14 +110,20 @@ def raw_launch(torch, tk, lib, name, x, args):
     stream = torch.cuda.current_stream().cuda_stream
     dt = tk._DTYPES[x.dtype]
     if name == "fm_conv_bn_relu":
-        fn = lib.dffx_fm_conv_bn_relu
         y = torch.empty((b, 8, n, h, w), dtype=x.dtype, device=x.device)
-        if len(fn.argtypes) == 9:  # x, params, y, ...
-            keep = [tk.fm_conv_params(x, *args)]
-        else:  # the tree before the redesign: x, w, scale, shift, y, ...
-            keep = [t.float().contiguous() for t in args]
+        params = tk.fm_conv_params(x, *args)
+        ptrs = (x.data_ptr(), params.data_ptr(), y.data_ptr())
+        return (lambda: lib.dffx_fm_conv_bn_relu(*ptrs, b, n, h, w, dt, stream)), y
+    if name == "rb2d_residual":
+        fn = lib.dffx_rb2d_residual
+        y = torch.empty_like(x)
+        if len(fn.argtypes) == 10:  # x, params, y, ...
+            keep = [tk.rb2d_params(x, *args)]
+        else:  # the tree before the redesign: x, w1, s1, b1, w2, s2, b2, y, ...
+            w1, aff1, w2, aff2 = args
+            keep = [t.float().contiguous() for t in (w1, *aff1, w2, *aff2)]
         ptrs = [x.data_ptr(), *(t.data_ptr() for t in keep), y.data_ptr()]
-        return (lambda: fn(*ptrs, b, n, h, w, dt, stream)), y
+        return (lambda: fn(*ptrs, b, x.shape[1], n, h, w, dt, stream)), y
     if name == "motion_head_conv_chain":
         fn = lib.dffx_motion_head_conv_chain
         y = torch.empty((b, 3, n, h, w), dtype=x.dtype, device=x.device)
@@ -130,7 +138,13 @@ def raw_launch(torch, tk, lib, name, x, args):
         ptrs = (x.data_ptr(), params.data_ptr(), y.data_ptr())
         return (lambda: lib.dffx_rb_of_chain(*ptrs, b, x.shape[1], cout, len(blocks), n, h, w,
                                              dt, stream)), y
-    return None, None  # separate weight pointers: the wrapper adds no packing to time apart
+    if name == "srd_attention_residual":
+        y = torch.empty_like(x)
+        keep = [t.float().contiguous() for t in args]
+        ptrs = [x.data_ptr(), *(t.data_ptr() for t in keep), y.data_ptr()]
+        return (lambda: lib.dffx_srd_attention_residual(*ptrs, b, x.shape[1], n, h, w, dt,
+                                                        stream)), y
+    raise ValueError(name)
 
 
 def back_to_back_ms(torch, fn, n: int = 20) -> float:
@@ -158,8 +172,13 @@ def bench_kernels(np, torch, tk, lib, dev, smi, reps, only=()):
              ("motion_head_conv_chain", "ragged", mk.head(*ragged)),
              ("motion_head_conv_chain", "odd", mk.head(*odd)),
              ("rb2d_residual", "e2e_c8", mk.rb2d(*e2e)),
+             ("rb2d_residual", "path_c8", mk.rb2d(*path)),
+             ("rb2d_residual", "odd_c8", mk.rb2d(*odd)),
+             ("rb2d_residual", "ragged_c16", mk.rb2d(*ragged, c=16)),
+             ("rb2d_residual", "ragged_c32", mk.rb2d(*ragged, c=32)),
              ("srd_attention_residual", "e2e_c8", mk.srd(*e2e)),
              ("rb_of_chain", "e2e_fe1", mk.chain(*e2e, ((3, 8), (8, 8)))),
+             ("rb_of_chain", "odd_fe1", mk.chain(*odd, ((3, 8), (8, 8)))),
              ("rb_of_chain", "e2e_fe2", mk.chain(1, N, EH // 2, EW // 2, ((16, 16),))),
              ("rb_of_chain", "e2e_fe3", mk.chain(1, N, EH // 4, EW // 4, ((32, 32),)))]
     for name, tag, args in cases:
@@ -175,18 +194,18 @@ def bench_kernels(np, torch, tk, lib, dev, smi, reps, only=()):
                    "in": list(x.shape), "dtype": str(dtype).split(".")[1],
                    "max_abs_err": (got.float() - ref).abs().max().item(),
                    "ms": median_ms(torch, lambda: kernel(x, *args[1:]), reps)}
+            packer = getattr(tk, PACKERS.get(name, ""), None)  # None: the wrapper packs nothing
+            if packer is not None:
+                cache = tk.ParamCache(packer)
+                row["cached_ms"] = median_ms(
+                    torch, lambda: kernel(x, *args[1:], params=cache(x, *args[1:])), reps)
             launch, y = raw_launch(torch, tk, lib, name, x, args[1:])
-            if launch is not None:
-                if hasattr(tk, "ParamCache"):
-                    cache = tk.ParamCache(getattr(tk, PACKERS[name]))
-                    row["cached_ms"] = median_ms(
-                        torch, lambda: kernel(x, *args[1:], params=cache(x, *args[1:])), reps)
-                if launch() != 0:
-                    raise RuntimeError(f"{name}: launch failed")
-                torch.cuda.synchronize()
-                row["kernel_only_err"] = (y.float() - ref).abs().max().item()
-                row["kernel_only_ms"] = median_ms(torch, launch, reps)
-                row["kernel_only_back_to_back_ms"] = back_to_back_ms(torch, launch)
+            if launch() != 0:
+                raise RuntimeError(f"{name}: launch failed")
+            torch.cuda.synchronize()
+            row["kernel_only_err"] = (y.float() - ref).abs().max().item()
+            row["kernel_only_ms"] = median_ms(torch, launch, reps)
+            row["kernel_only_back_to_back_ms"] = back_to_back_ms(torch, launch)
             if tag in ("e2e", "path") or tag.startswith("e2e_"):
                 row["twin_ms"] = median_ms(torch, lambda: twin(x, *args[1:]), max(reps // 3, 5))
             emit(row)
@@ -303,28 +322,46 @@ def bench_stages(np, torch, tk, dev, smi):
         emit({"what": "stages", "device": smi, "dtype": str(dtype).split(".")[1],
               "shape": [1, 10, EH, EW], "forwards": len(totals), "total_ms": total,
               "stage_ms": med})
-        from torch.profiler import ProfilerActivity, profile
-
-        with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
-                                                         ProfilerActivity.CUDA]) as prof:
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
+        emit({"what": "profile", "device": smi, "model": "e2e", "batch": 1,
+              "dtype": str(dtype).split(".")[1], "shape": [10, EH, EW],
+              **profile_forwards(torch, lambda: net(fs, fd, fovs))})
+    # DFFNet alone at its serving shape: device time by kernel name, busy share
+    dff = load_params_auto(0, device=dev)
+    for dtype, batch in ((torch.float32, 1), (torch.bfloat16, 4)):
+        fs = torch.from_numpy(rng.uniform(-1, 1, (batch, N, H, W, 3)).astype(np.float32)).to(
+            dev, dtype)
+        fdb = fd.expand(batch, -1).contiguous()
+        with torch.inference_mode():
             for _ in range(3):
-                net(fs, fd, fovs)
-            end.record()
-            torch.cuda.synchronize()
-        wall = start.elapsed_time(end)
-        from torch.autograd import DeviceType
+                dff(fs, fdb)
+        emit({"what": "profile", "device": smi, "model": "dffnet", "batch": batch,
+              "dtype": str(dtype).split(".")[1], "shape": [N, H, W],
+              **profile_forwards(torch, lambda: dff(fs, fdb), forwards=6)})
 
-        # the kernels' own rows only: an operator's row repeats its kernels' time
-        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-                for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
-        emit({"what": "profile", "device": smi, "dtype": str(dtype).split(".")[1],
-              "forwards": 3, "wall_ms_per_forward": wall / 3,
-              "device_busy_share": sum(r[1] for r in rows) / wall,
-              "top_ms_per_forward": [{"name": k[:90], "ms": ms / 3, "calls": c / 3}
-                                     for k, ms, c in rows[:14]]})
+
+def profile_forwards(torch, forward, forwards: int = 3) -> dict:
+    """``torch.profiler`` over a few forwards: wall time, the device's busy
+    share of it, and the device time of the top kernels, per forward."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
+                                                     ProfilerActivity.CUDA]) as prof:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(forwards):
+            forward()
+        end.record()
+        torch.cuda.synchronize()
+    wall = start.elapsed_time(end)
+    # the kernels' own rows only: an operator's row repeats its kernels' time
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    return {"forwards": forwards, "wall_ms_per_forward": wall / forwards,
+            "device_busy_share": sum(r[1] for r in rows) / wall,
+            "top_ms_per_forward": [{"name": k[:90], "ms": ms / forwards, "calls": c / forwards}
+                                   for k, ms, c in rows[:14]]}
 
 
 def bench_serving(np, torch, dev, smi):

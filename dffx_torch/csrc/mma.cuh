@@ -1,6 +1,7 @@
-// Tensor-core building blocks of the implicit-GEMM conv kernels (rb_of.cu,
-// motion_head.cu, fm_conv.cu): mma.sync m16n8k8 with TF32 operands and fp32
-// accumulators, in the 3xTF32 split.
+// Tensor-core building blocks of the implicit-GEMM conv kernels (fm_conv.cu,
+// motion_head.cu, rb_of.cu, and res_block.cuh for rb_of.cu and rb2d.cu):
+// mma.sync m16n8k8 with TF32 operands and fp32 accumulators, in the 3xTF32
+// split.
 //
 // A conv is a GEMM with M = pixels (m-tiles of 16), N = output channels
 // (n-tiles of 8) and K = taps x input channels (k-steps of 8).  Plain TF32
@@ -179,8 +180,7 @@ __device__ __forceinline__ void conv3x3_mma(const float* __restrict__ src, const
                                             const float* __restrict__ w, int lane,
                                             float (&acc)[MG][NB][2][4]) {
   const float2* frag = reinterpret_cast<const float2*>(w);
-#pragma unroll 1
-  for (int ky = 0; ky < 3; ++ky) {
+  auto row = [&](int ky) {
 #pragma unroll
     for (int kx = 0; kx < 3; ++kx) {
 #pragma unroll
@@ -190,7 +190,82 @@ __device__ __forceinline__ void conv3x3_mma(const float* __restrict__ src, const
                                    frag + ((ky * 3 + kx) * (CIN / 8) + kc) * NB * 32, lane, acc);
       }
     }
+  };
+  // At CIN = 8 a tap is one k-step, and the nine of them go into one basic
+  // block: loads and MMAs of neighbouring rows overlap (on the H100, 700 W,
+  // rb2d_residual 0.532 against 0.548 ms and rb_of_chain's pair 1.07 against
+  // 1.14 at 10 x 608 x 1088).  Wider convs keep the row loop: unrolled, the
+  // 32-channel block of rb_of_chain took 0.50 ms against 0.38.
+  if constexpr (CIN == 8) {
+#pragma unroll
+    for (int ky = 0; ky < 3; ++ky) row(ky);
+  } else {
+#pragma unroll 1
+    for (int ky = 0; ky < 3; ++ky) row(ky);
   }
+}
+
+// ---------------------------------------------------------------------------
+// A conv over a region of a tile
+// ---------------------------------------------------------------------------
+
+// Where the region positions p (rows RW wide) sit in planes whose rows are SW
+// wide, from base: the A-operand offsets of a round's m-tiles.
+template <int RW, int SW, int MG>
+__device__ __forceinline__ void region_offsets(const int (&p)[MG], int base, int (&o)[MG]) {
+#pragma unroll
+  for (int j = 0; j < MG; ++j) o[j] = base + p[j] / RW * SW + p[j] % RW;
+}
+
+// One conv stage of a block of NW warps over a region of NPOS output
+// positions, in m-tiles of 16 consecutive positions: the warp's are warp,
+// warp + NW, ..., MG of them per round.  body(p0, p1, nvalid, acc) runs the
+// round's k-steps into acc[MG][NB][2][4] (zero at entry), where p0[j] and p1[j]
+// are the positions of m-tile j's pixels g and g + 8, clamped to the region;
+// epi(p, co, sum) takes each result, co = 8 nb + 2 t + {0, 1}.
+template <int NW, int MG, int NB, int NPOS, typename Body, typename Epi>
+__device__ __forceinline__ void region_mma(int warp, int lane, Body body, Epi epi) {
+  constexpr int M = (NPOS + 15) / 16;
+  const int g = lane / 4, t = lane % 4;
+  const int mine = (M - warp + NW - 1) / NW;
+#pragma unroll 1
+  for (int i0 = 0; i0 < mine; i0 += MG) {
+    int p0[MG], p1[MG];
+#pragma unroll
+    for (int j = 0; j < MG; ++j) {
+      p0[j] = min((warp + (i0 + j) * NW) * 16 + g, NPOS - 1);
+      p1[j] = min(p0[j] + 8, NPOS - 1);
+    }
+    const int nvalid = min(mine - i0, MG);
+    float acc[MG][NB][2][4] = {};
+    // a full round gets its count as a constant: its k-loop has no branch
+    // around any m-tile, so loads and MMAs of neighbouring k-steps overlap
+    if (nvalid == MG) {
+      body(p0, p1, MG, acc);
+    } else {
+      body(p0, p1, nvalid, acc);
+    }
+#pragma unroll
+    for (int j = 0; j < MG; ++j) {
+      if (j >= nvalid) continue;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int p = (warp + (i0 + j) * NW) * 16 + g + 8 * (k / 2);
+          if (p < NPOS) epi(p, nb * 8 + 2 * t + k % 2, acc[j][nb][0][k] + acc[j][nb][1][k]);
+        }
+      }
+    }
+  }
+}
+
+// m-tiles a warp takes together in a region_mma stage of NPOS positions: its
+// share, in rounds of equal size of at most CAP
+__host__ __device__ constexpr int region_mg(int npos, int nw, int cap) {
+  const int mt = ((npos + 15) / 16 + nw - 1) / nw;
+  const int rounds = (mt + cap - 1) / cap;
+  return (mt + rounds - 1) / rounds;
 }
 
 // ---------------------------------------------------------------------------
@@ -248,19 +323,39 @@ __device__ __forceinline__ void stage_tile_vec(const float* __restrict__ x, int6
   }
 }
 
-// The tile by the widest copies x allows.  vec: fp32 x is 16-byte aligned and
-// W a multiple of 4 (vec_ok); a bf16 tile always goes through registers.
+// The same tile from bf16, under the same conditions: 8-byte loads of 4
+// values, widened (a bf16 is the high half of its fp32) and stored as 16 bytes.
+template <int CI, int IH, int IW, int P, int NT, int SW = IW>
+__device__ __forceinline__ void stage_tile_vec(const __nv_bfloat16* __restrict__ x, int64_t base,
+                                               int64_t cstride, float* __restrict__ dst,
+                                               int gh0, int gw0, int H, int W) {
+  static_assert(IW % 4 == 0 && SW % 4 == 0 && P % 4 == 0, "16-byte stores");
+#pragma unroll 4
+  for (int i = threadIdx.x; i < CI * IH * (IW / 4); i += NT) {
+    const int c = i / (IH * (IW / 4)), r = i % (IH * (IW / 4));
+    const int row = r / (IW / 4), col = r % (IW / 4) * 4;
+    const int gh = gh0 + row, gw = gw0 + col;
+    uint2 raw = make_uint2(0u, 0u);
+    if (in_image(gh, gw, H, W)) {
+      raw = *reinterpret_cast<const uint2*>(x + base + c * cstride + (int64_t)gh * W + gw);
+    }
+    *reinterpret_cast<float4*>(dst + c * P + row * SW + col) =
+        make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
+                    __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
+  }
+}
+
+// The tile by the widest copies x allows.  vec: x is 16-byte aligned and W a
+// multiple of 4 (vec_ok).
 template <int CI, int IH, int IW, int P, int NT, int SW = IW, typename T>
 __device__ __forceinline__ void stage_tile_any(const T* __restrict__ x, int64_t base,
                                                int64_t cstride, float* __restrict__ dst,
                                                int gh0, int gw0, int H, int W, bool vec) {
-  if constexpr (sizeof(T) == sizeof(float)) {
-    if (vec) {
-      stage_tile_vec<CI, IH, IW, P, NT, SW>(x, base, cstride, dst, gh0, gw0, H, W);
-      return;
-    }
+  if (vec) {
+    stage_tile_vec<CI, IH, IW, P, NT, SW>(x, base, cstride, dst, gh0, gw0, H, W);
+  } else {
+    stage_tile<CI, IH, IW, P, NT, SW>(x, base, cstride, dst, gh0, gw0, H, W);
   }
-  stage_tile<CI, IH, IW, P, NT, SW>(x, base, cstride, dst, gh0, gw0, H, W);
 }
 
 inline bool vec_ok(const void* x, int W) {

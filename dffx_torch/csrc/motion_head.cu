@@ -34,9 +34,9 @@
 //   walks the 32 x 16 tiles.  A block copies the weights once, already in
 //   B-fragment order (kernels.py::motion_head_params), with 16-byte cp.async.
 //   The input tile with the chain's 4-pixel halo arrives by cp.async (16 bytes
-//   at a time when W is a multiple of 4, zero-filled outside the image; bf16
-//   through registers), and the next tile's is in flight from the end of
-//   conv0 on, while conv1..conv3 run.
+//   at a time when W is a multiple of 4, zero-filled outside the image; a
+//   bf16 tile by 8-byte loads, widened in registers), and the next tile's is
+//   in flight from the end of conv0 on, while conv1..conv3 run.
 // * BN and ReLU are applied to the accumulators in registers; the result goes
 //   to shared memory as the next conv's A operand, in two buffers that take
 //   turns (conv0 -> A, conv1 -> B, conv2 -> A), channel planes at a stride of
@@ -44,10 +44,11 @@
 //   conv's zero padding requires: relu(BN(0)) is not 0 wherever a BN shift is
 //   positive (the TPU kernel masks the same positions with store_masked).
 // The chain recomputes its halo: 1.31x the pixels of the four convs at the
-// 32 x 16 tile.  Measured on the H100 (700 W) at 1 x 18 x 10 x 608 x 1088: 3.6 to
-// 3.8 ms (the FMA design: 7.6), about 125 TFLOP/s of TF32 MMAs, against 328
-// TFLOP/s that bare mma.sync m16n8k8 reaches there (dffx_torch/bench.py --what
-// mma).
+// 32 x 16 tile.  Measured on the H100 (700 W) at 1 x 18 x 10 x 608 x 1088: 3.45
+// ms in fp32 and 3.22 in bf16 (the FMA design: 7.6; 3.6 to 3.8 while a full
+// round of m-tiles took its count at run time, and a bf16 tile was widened
+// element by element), about 134 TFLOP/s of TF32 MMAs, against 328 TFLOP/s
+// that bare mma.sync m16n8k8 reaches there (dffx_torch/bench.py --what mma).
 // Variants that lost there, kernel only: 8 warps with 4 m-tiles a round
 // (4.6 ms), a 32 x 8 tile (5.8 ms), and on that tile the intermediates written
 // as their two TF32 parts, which takes the split out of conv1..conv3's loops
@@ -70,8 +71,6 @@ constexpr int KC = 2, NB = 2;             // 8-channel k-steps per tap, n-tiles 
 constexpr int TAIL_K = (CIN - C) * 9;     // k values of channels 16 and 17
 constexpr int TAIL_STEPS = (TAIL_K + 7) / 8;
 
-__host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
-
 // Tile, m-tile and shared-memory plan of the 16 x 32 tile.  Parameters as the
 // wrapper packs them: w0 (main k-steps, then the tail's), s0, b0, w1, s1, b1,
 // w2, s2, b2, w3, bias3 padded to 4; shared memory holds them as they come,
@@ -84,8 +83,7 @@ struct P {
   __host__ __device__ static constexpr int rw(int r) { return TW + 6 - 2 * r; }
   // m-tiles a warp takes together in conv r: its share, in rounds of equal size
   __host__ __device__ static constexpr int mg(int r) {
-    const int mt = ceil_div(ceil_div(rh(r) * rw(r), 16), NW);
-    return ceil_div(mt, ceil_div(mt, MGCAP));
+    return dffx::region_mg(rh(r) * rw(r), NW, MGCAP);
   }
   static constexpr int IP = plane(IH * IW), AP = plane((TH + 6) * (TW + 6)),
                        BP = plane((TH + 4) * (TW + 4)), A2P = plane((TH + 2) * (TW + 2));
@@ -101,16 +99,14 @@ struct P {
 // One conv of the chain for the whole block: output position p = ry * RW + rx
 // of an RH x RW region reads src (rows SW wide, planes SP apart) at rows ry ..
 // ry + 2 and columns rx .. rx + 2.  KC 8-channel k-steps per tap and, with
-// TAIL, the three k-steps of channels 16 and 17.  The warp's m-tiles are
-// warp, warp + NW, ..., MG of them per round; epi(p, co, sum) takes each
-// result (co = 8 nb + 2 t + {0, 1}).  BF16: src holds widened bf16 values,
-// which have no low part (mma.cuh::load_a).
+// TAIL, the three k-steps of channels 16 and 17.  The warp's m-tiles and
+// epi(p, co, sum) are mma.cuh::region_mma's, MG m-tiles per round.  BF16: src
+// holds widened bf16 values, which have no low part (mma.cuh::load_a).
 template <bool TAIL, int NBO, int MG, int RH, int RW, int SW, int SP, bool BF16, typename Epi>
 __device__ __forceinline__ void conv_stage(const float* __restrict__ src,
                                            const float* __restrict__ w, int warp, int lane,
                                            Epi epi) {
-  constexpr int NPOS = RH * RW, M = (NPOS + 15) / 16;
-  const int g = lane / 4, t = lane % 4;
+  const int t = lane % 4;
   const float2* frag = reinterpret_cast<const float2*>(w);
   // the tail's k value 8 s + t (+ 4) is channel 16 + k / 9 at tap k % 9; the
   // offsets are relative to the thread's own plane t, which pa and pb hold
@@ -125,45 +121,27 @@ __device__ __forceinline__ void conv_stage(const float* __restrict__ src,
       }
     }
   }
-  const int mine = (M - warp + NW - 1) / NW;
-#pragma unroll 1
-  for (int i0 = 0; i0 < mine; i0 += MG) {
-    int pa[MG], pb[MG];
+  dffx::region_mma<NW, MG, NBO, RH * RW>(
+      warp, lane,
+      [&](const int(&p0)[MG], const int(&p1)[MG], int nvalid, float(&acc)[MG][NBO][2][4]) {
+        int pa[MG], pb[MG];
+        dffx::region_offsets<RW, SW>(p0, t * SP, pa);
+        dffx::region_offsets<RW, SW>(p1, t * SP, pb);
+        dffx::conv3x3_mma<C, MG, NBO, SP, SW, BF16>(src, pa, pb, nvalid, w, lane, acc);
+        if constexpr (TAIL) {
 #pragma unroll
-    for (int j = 0; j < MG; ++j) {
-      const int p0 = min((warp + (i0 + j) * NW) * 16 + g, NPOS - 1);
-      const int p1 = min(p0 + 8, NPOS - 1);
-      pa[j] = t * SP + p0 / RW * SW + p0 % RW;
-      pb[j] = t * SP + p1 / RW * SW + p1 % RW;
-    }
-    const int nvalid = min(mine - i0, MG);
-    float acc[MG][NBO][2][4] = {};
-    dffx::conv3x3_mma<C, MG, NBO, SP, SW, BF16>(src, pa, pb, nvalid, w, lane, acc);
-    if constexpr (TAIL) {
-#pragma unroll
-      for (int s = 0; s < TAIL_STEPS; ++s) {
-        dffx::mma_kstep_at<MG, NBO, BF16>(src, pa, pb, tail[s][0], tail[s][1], nvalid,
-                                          frag + (9 * KC + s) * NBO * 32, lane, acc);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < MG; ++j) {
-      if (j >= nvalid) continue;
-#pragma unroll
-      for (int nb = 0; nb < NBO; ++nb) {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int p = (warp + (i0 + j) * NW) * 16 + g + 8 * (k / 2);
-          if (p < NPOS) epi(p, nb * 8 + 2 * t + k % 2, acc[j][nb][0][k] + acc[j][nb][1][k]);
+          for (int s = 0; s < TAIL_STEPS; ++s) {
+            dffx::mma_kstep_at<MG, NBO, BF16>(src, pa, pb, tail[s][0], tail[s][1], nvalid,
+                                              frag + (9 * KC + s) * NBO * 32, lane, acc);
+          }
         }
-      }
-    }
-  }
+      },
+      epi);
 }
 
 // Persistent: block i takes tiles i, i + gridDim.x, ...; tile index =
 // (b * N + n) * tiles_h * tiles_w + ty * tiles_w + tx.
-// vec: the input tile by 16-byte copies (fp32, W % 4 == 0, x 16-byte aligned).
+// vec: the input tile by 16-byte copies (W % 4 == 0, x 16-byte aligned).
 template <typename T>
 __global__ void __launch_bounds__(NT, 1)
 motion_head_kernel(const T* __restrict__ x, const float* __restrict__ params,

@@ -11,7 +11,8 @@
 // (64 bytes in fp32 at C = 8) for 4 C^2 FMAs (512 FLOP at C = 8), about 8
 // FLOP/byte, below the fp32 ridge of about 20: device-memory traffic bounds it.
 //
-// What the design does about it: one thread per (b, h, w) pixel walks n = 0 ..
+// What the design does about it: one thread per (b, h, w) pixel (b is part of
+// the block index: any B, and N is no grid dimension at all) walks n = 0 ..
 // N-1 with a three-slice window of C values in registers, so each input value
 // is read from device memory once and each output written once; neighbouring
 // threads hold neighbouring w, so every load and store of a warp is one
@@ -30,7 +31,7 @@ template <typename T, int C>
 __global__ void __launch_bounds__(THREADS, C <= 8 ? 4 : (C <= 16 ? 2 : 1))
 srd_attention_kernel(const T* __restrict__ f, const float* __restrict__ wn,
                      const float* __restrict__ w1, T* __restrict__ y, int N,
-                     int64_t hw) {
+                     int64_t hw, int blocks_per_b) {
   __shared__ __align__(16) float wn_s[3 * C * C];  // [dn][cin][cout]
   __shared__ __align__(16) float w1_s[C * C];      // [cin][cout]
   // torch layouts: wn (cout, cin, 3, 1, 1), w1 (cout, cin, 1, 1, 1)
@@ -43,10 +44,12 @@ srd_attention_kernel(const T* __restrict__ f, const float* __restrict__ wn,
   }
   __syncthreads();
 
-  const int64_t p = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  // blockIdx.x = b * blocks_per_b + the pixel block: B is no grid dimension of its own
+  const int b = blockIdx.x / blocks_per_b;
+  const int64_t p = (int64_t)(blockIdx.x % blocks_per_b) * THREADS + threadIdx.x;
   if (p >= hw) return;
   const int64_t cstride = (int64_t)N * hw;
-  const int64_t base = (int64_t)blockIdx.y * C * cstride + p;
+  const int64_t base = (int64_t)b * C * cstride + p;
 
   float prev[C], cur[C], next[C];
 #pragma unroll
@@ -97,10 +100,12 @@ srd_attention_kernel(const T* __restrict__ f, const float* __restrict__ wn,
 template <typename T, int C>
 cudaError_t launch(const void* f, const void* wn, const void* w1, void* y, int B,
                    int N, int64_t hw, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((hw + THREADS - 1) / THREADS), B);
-  srd_attention_kernel<T, C><<<grid, THREADS, 0, stream>>>(
+  const int64_t blocks_per_b = (hw + THREADS - 1) / THREADS;
+  if (B * blocks_per_b > 0x7fffffff) return cudaErrorInvalidValue;
+  srd_attention_kernel<T, C><<<static_cast<unsigned>(B * blocks_per_b), THREADS, 0, stream>>>(
       static_cast<const T*>(f), static_cast<const float*>(wn),
-      static_cast<const float*>(w1), static_cast<T*>(y), N, hw);
+      static_cast<const float*>(w1), static_cast<T*>(y), N, hw,
+      static_cast<int>(blocks_per_b));
   return cudaGetLastError();
 }
 

@@ -26,8 +26,8 @@ import torch
 from torch import nn
 
 from dffx_torch.ops import batch_norm, bn_fused_affine, conv3d, deconv3d
-from dffx_torch.ops.kernels import (ParamCache, fm_conv_bn_relu, fm_conv_params, rb2d_residual,
-                                    srd_attention_residual, tensor_stamp)
+from dffx_torch.ops.kernels import (ParamCache, fm_conv_bn_relu, fm_conv_params, rb2d_params,
+                                    rb2d_residual, srd_attention_residual, tensor_stamp)
 
 
 class Conv3d(nn.Conv3d):
@@ -159,14 +159,15 @@ class FMModule(nn.Module):
             nn.ReLU(),
             SRD(8))
         self._conv_params = ParamCache(fm_conv_params)
+        self._rb_params = ParamCache(rb2d_params)
 
     def forward(self, x):
         conv, _, srd = self.Focus_extraction
         args = (conv[0].weight, *conv[1].fused_affine())
         y = fm_conv_bn_relu(x, *args, params=self._conv_params(x, *args))
         rb = srd.Focus_Measure.conv
-        f = rb2d_residual(y, rb[0][0].weight, rb[0][1].fused_affine(),
-                          rb[2][0].weight, rb[2][1].fused_affine())
+        args = (rb[0][0].weight, rb[0][1].fused_affine(), rb[2][0].weight, rb[2][1].fused_affine())
+        f = rb2d_residual(y, *args, params=self._rb_params(y, *args))
         att = srd.N_ch_attention
         return srd_attention_residual(f, att[0].weight, att[2].weight)
 

@@ -36,8 +36,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # x, params, y, B, N, H, W, dtype, stream
     "dffx_fm_conv_bn_relu": [_P] * 3 + [_I] * 5 + [_P],
-    # x, w1, s1, b1, w2, s2, b2, y, B, C, N, H, W, dtype, stream
-    "dffx_rb2d_residual": [_P] * 8 + [_I] * 6 + [_P],
+    # x, params, y, B, C, N, H, W, dtype, stream
+    "dffx_rb2d_residual": [_P] * 3 + [_I] * 6 + [_P],
     # f, wn, w1, y, B, C, N, H, W, dtype, stream
     "dffx_srd_attention_residual": [_P] * 4 + [_I] * 6 + [_P],
     # x, params, y, B, Cin, Cout, nblocks, N, H, W, dtype, stream

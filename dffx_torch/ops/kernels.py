@@ -47,12 +47,13 @@ __all__ = [
     "rb_of_chain_ref",
     "motion_head_conv_chain",
     "motion_head_conv_chain_ref",
-    "fma_conv_layout",
     "mma_conv_layout",
     "head_conv0_layout",
+    "pair_conv0_layout",
     "fm_conv_taps",
     "fm_conv_layout",
     "fm_conv_params",
+    "rb2d_params",
     "rb_of_chain_params",
     "motion_head_params",
     "ParamCache",
@@ -109,15 +110,12 @@ def _param(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return t.float().contiguous()
 
 
-def _cuda_args(x: torch.Tensor, c_ok=None, bn_in_grid: bool = True):
-    """Check what only the kernel needs; returns (library, stream handle).
-    ``bn_in_grid``: the launch has B * N as a grid dimension (at most 65535)."""
+def _cuda_args(x: torch.Tensor, c_ok=None):
+    """Check what only the kernel needs; returns (library, stream handle)."""
     if not x.is_contiguous():
         raise ValueError("the CUDA kernels take contiguous (B, C, N, H, W) tensors")
     if c_ok is not None and x.shape[1] not in c_ok:
         raise ValueError(f"kernel built for C in {c_ok}, got C = {x.shape[1]}")
-    if bn_in_grid and x.shape[0] * x.shape[2] > 65535:
-        raise ValueError("B * N is a grid dimension of the launch: at most 65535")
     return _build.library(), torch.cuda.current_stream(x.device).cuda_stream
 
 
@@ -166,7 +164,7 @@ class ParamCache:
     only when the device or one of the source tensors changes.
 
     Eval weights are constants, and packing them (``fm_conv_params``,
-    ``rb_of_chain_params``, ``motion_head_params``) costs the host about
+    ``rb2d_params``, ``rb_of_chain_params``, ``motion_head_params``) costs the host about
     0.1 ms a call, which a small image or an idle card shows.  A module keeps
     one ``ParamCache(pack)`` per kernel it calls and hands ``cache(x, *args)``
     to the wrapper as ``params``; for a CPU tensor that is ``None`` (the twin
@@ -206,13 +204,6 @@ def _use_params(params, x: torch.Tensor, tensors, layouts) -> torch.Tensor:
     return params
 
 
-def fma_conv_layout(w: torch.Tensor) -> torch.Tensor:
-    """Conv weight ``(Cout, Cin, 1, kh, kw)`` as the FMA kernel reads it
-    (``csrc/chain.cuh``, the 3 -> 8 -> 8 pair of ``rb_of_chain``): flat
-    ``[cin][tap][cout]``, tap = ky * kw + kx."""
-    return w.permute(1, 2, 3, 4, 0).reshape(-1)
-
-
 def _pad_value(w: torch.Tensor) -> int:
     """What a layout pads with: 0 in a weight, -1 in a tensor of indices
     (``_gather_index`` sends those to a 0)."""
@@ -247,6 +238,14 @@ def head_conv0_layout(w: torch.Tensor) -> torch.Tensor:
     return torch.cat([mma_conv_layout(w[:, :16]), _b_fragments(tail)])
 
 
+def pair_conv0_layout(w: torch.Tensor) -> torch.Tensor:
+    """The first conv of ``rb_of_chain``'s 3 -> 8 -> 8 pair ``(8, 3, 1, 3, 3)``
+    as ``csrc/rb_of.cu`` reads it: B fragments of four k-steps, k = 9 cin +
+    tap, padded from 27 to 32."""
+    wk = w.reshape(w.shape[0], -1)
+    return _b_fragments(F.pad(wk, (0, -wk.shape[1] % 8), value=_pad_value(w)))
+
+
 def fm_conv_taps() -> torch.Tensor:
     """The K order of ``csrc/fm_conv.cu``: 248 entries, each the flat tap
     ``(cin * 9 + ky) * 9 + kx`` of the ``(3, 9, 9)`` kernel or -1 (padding).
@@ -279,17 +278,32 @@ def fm_conv_params(x: torch.Tensor, w, scale, shift) -> torch.Tensor:
     return _packed(x, *_fm_conv_plan(w, scale, shift))
 
 
+def _rb2d_plan(w1, aff1: Affine, w2, aff2: Affine):
+    return ((w1, *aff1, w2, *aff2),
+            (mma_conv_layout, None, None, mma_conv_layout, None, None))
+
+
+def rb2d_params(x: torch.Tensor, w1, aff1: Affine, w2, aff2: Affine) -> torch.Tensor:
+    """The fp32 buffer ``csrc/rb2d.cu`` reads, on x's device: w1, s1, b1, w2,
+    s2, b2, the convs in ``mma_conv_layout``."""
+    return _packed(x, *_rb2d_plan(w1, aff1, w2, aff2))
+
+
 def _rb_of_chain_plan(blocks: Sequence[OFBlock]):
-    layout = fma_conv_layout if blocks[0][0].shape[1] % 8 else mma_conv_layout
-    return ([t for w1, aff1, w2, aff2, ws in blocks for t in (w1, *aff1, w2, *aff2, ws)],
-            [layout, None, None, layout, None, None, layout] * len(blocks))
+    tensors, layouts = [], []
+    for w1, aff1, w2, aff2, ws in blocks:
+        narrow = w1.shape[1] % 8 != 0  # the pair's 3-channel input
+        tensors += [w1, *aff1, w2, *aff2, ws]
+        layouts += [pair_conv0_layout if narrow else mma_conv_layout, None, None,
+                    mma_conv_layout, None, None, None if narrow else mma_conv_layout]
+    return tensors, layouts
 
 
 def rb_of_chain_params(x: torch.Tensor, blocks: Sequence[OFBlock]) -> torch.Tensor:
     """The fp32 buffer ``csrc/rb_of.cu`` reads, on x's device: per block w1,
-    s1, b1, w2, s2, b2, ws, the convs in ``fma_conv_layout`` for the 3 -> 8 -> 8
-    pair (FMA design) and in ``mma_conv_layout`` for a 16 -> 16 or 32 -> 32
-    block (tensor cores)."""
+    s1, b1, w2, s2, b2, ws, every conv and shortcut in ``mma_conv_layout``;
+    the 3 -> 8 block of the pair has its w1 in ``pair_conv0_layout`` and its
+    shortcut as it is, ``[cout][cin]``."""
     return _packed(x, *_rb_of_chain_plan(blocks))
 
 
@@ -327,7 +341,7 @@ def fm_conv_bn_relu(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         return fm_conv_bn_relu_ref(x, w, scale, shift)
     if x.device.type != "cuda":
         raise _unsupported(x)
-    lib, stream = _cuda_args(x, bn_in_grid=False)
+    lib, stream = _cuda_args(x)
     b, _, n, h, wd = x.shape
     params = _use_params(params, x, *_fm_conv_plan(w, scale, shift))
     y = torch.empty((b, 8, n, h, wd), dtype=x.dtype, device=x.device)
@@ -354,9 +368,11 @@ def rb2d_residual_ref(x, w1, aff1: Affine, w2, aff2: Affine):
 
 
 def rb2d_residual(x: torch.Tensor, w1: torch.Tensor, aff1: Affine, w2: torch.Tensor,
-                  aff2: Affine) -> torch.Tensor:
+                  aff2: Affine, *, params: torch.Tensor | None = None) -> torch.Tensor:
     """x ``(B, C, N, H, W)``; w1/w2 ``(C, C, 1, 3, 3)``; aff = fp32 (scale, shift)
-    of shape ``(C,)``.  The kernel takes C in 8, 16, 32 and any H, W >= 1."""
+    of shape ``(C,)``.  The kernel takes C in 8, 16, 32 and any B, N, H, W >= 1.
+    ``params``: the same weights already packed (``rb2d_params``, kept by a
+    ``ParamCache``); without it they are packed on this call."""
     _check_act(x)
     c = x.shape[1]
     for name, t in (("w1", w1), ("w2", w2)):
@@ -370,11 +386,11 @@ def rb2d_residual(x: torch.Tensor, w1: torch.Tensor, aff1: Affine, w2: torch.Ten
         raise _unsupported(x)
     lib, stream = _cuda_args(x, _KERNEL_CHANNELS)
     b, _, n, h, wd = x.shape
-    ps = [_param(t, x) for t in (w1, aff1[0], aff1[1], w2, aff2[0], aff2[1])]
+    params = _use_params(params, x, *_rb2d_plan(w1, aff1, w2, aff2))
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = lib.dffx_rb2d_residual(
-            x.data_ptr(), *(p.data_ptr() for p in ps), y.data_ptr(),
+            x.data_ptr(), params.data_ptr(), y.data_ptr(),
             b, c, n, h, wd, _DTYPES[x.dtype], stream)
     _raise_on(err, "rb2d_residual")
     launches["rb2d_residual"] += 1
@@ -395,7 +411,7 @@ def srd_attention_residual_ref(f, wn, w1):
 def srd_attention_residual(f: torch.Tensor, wn: torch.Tensor, w1: torch.Tensor
                            ) -> torch.Tensor:
     """f ``(B, C, N, H, W)``; wn ``(C, C, 3, 1, 1)``; w1 ``(C, C, 1, 1, 1)``; both
-    bias-free.  The kernel takes C in 8, 16, 32 and any N, H, W >= 1."""
+    bias-free.  The kernel takes C in 8, 16, 32 and any B, N, H, W >= 1."""
     _check_act(f)
     c = f.shape[1]
     _check_param(wn, (c, c, 3, 1, 1), "wn")
@@ -464,7 +480,7 @@ def rb_of_chain(x: torch.Tensor, blocks: Sequence[OFBlock], *,
         raise _unsupported(x)
     if tuple(chans) not in _RB_OF_CHAINS:
         raise ValueError(f"kernel built for chains {_RB_OF_CHAINS}, got {tuple(chans)}")
-    lib, stream = _cuda_args(x, bn_in_grid=False)
+    lib, stream = _cuda_args(x)
     b, _, n, h, wd = x.shape
     params = _use_params(params, x, *_rb_of_chain_plan(blocks))
     y = torch.empty((b, cin, n, h, wd), dtype=x.dtype, device=x.device)
@@ -537,7 +553,7 @@ def motion_head_conv_chain(x: torch.Tensor, w0: torch.Tensor, aff0: Affine,
         raise _unsupported(x)
     if (cin, c) not in _MOTION_HEAD_WIDTHS:
         raise ValueError(f"kernel built for (Cin, C) in {_MOTION_HEAD_WIDTHS}, got {(cin, c)}")
-    lib, stream = _cuda_args(x, bn_in_grid=False)
+    lib, stream = _cuda_args(x)
     b, _, n, h, wd = x.shape
     params = _use_params(params, x,
                          *_motion_head_plan(w0, aff0, w1, aff1, w2, aff2, w3, bias3))

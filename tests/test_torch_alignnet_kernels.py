@@ -200,12 +200,44 @@ def _read_mma(section, co, ci, taps):
     return w
 
 
-def _read_fma(section, co, ci, taps):
-    """A conv as csrc/chain.cuh reads it ([cin][tap][cout]), back to (co, ci, taps)."""
-    c, tap, o = np.indices((ci, taps, co)).reshape(3, -1)
-    w = np.full((co, ci, taps), np.nan, np.float32)
-    w[o, c, tap] = section
+def _read_fragments(section, co, k):
+    """B fragments [k // 8][co // 8][lane][2] (csrc/mma.cuh) back to (co, k)."""
+    ks, nb, lane, j = np.indices((k // 8, co // 8, 32, 2)).reshape(4, -1)
+    w = np.full((co, k), np.nan, np.float32)
+    w[nb * 8 + lane // 4, ks * 8 + 4 * j + lane % 4] = section
     return w
+
+
+def _read_conv0(section, co, ci, taps):
+    """The pair's first conv as csrc/rb_of.cu reads it (k = 9 cin + tap, padded
+    to a multiple of 8 with zeros), back to (co, ci, taps)."""
+    k = ci * taps
+    w = _read_fragments(section, co, k + -k % 8)
+    np.testing.assert_array_equal(w[:, k:], 0)
+    return w[:, :k].reshape(co, ci, taps)
+
+
+def _read_block(packed, ci, co):
+    """One block of rb_of_chain_params' buffer as csrc/rb_of.cu reads it: (w1,
+    (s1, b1), w2, (s2, b2), ws) as (cout, cin, taps) convs, and its length.  A
+    block whose input is no multiple of 8 channels wide (the pair's first) has
+    its w1 in pair_conv0_layout and its shortcut as it is."""
+    narrow = ci % 8 != 0
+    sizes = [(9 * ci + -9 * ci % 8) * co if narrow else 9 * ci * co, co, co, 9 * co * co, co, co,
+             ci * co]
+    w1, s1, b1, w2, s2, b2, ws = np.split(packed[:sum(sizes)], np.cumsum(sizes)[:-1])
+    w1 = (_read_conv0 if narrow else _read_mma)(w1, co, ci, 9)
+    ws = ws.reshape(co, ci, 1) if narrow else _read_mma(ws, co, ci, 1)
+    return (w1, (s1, b1), _read_mma(w2, co, co, 9), (s2, b2), ws), sum(sizes)
+
+
+def test_pair_conv0_layout_covers_each_tap_once():
+    idx = tk.pair_conv0_layout(torch.arange(8 * 27).view(8, 3, 1, 3, 3)).numpy()
+    assert idx.shape == (4 * 64,)
+    assert sorted(idx[idx >= 0]) == list(range(8 * 27)) and (idx == -1).sum() == 8 * 5
+    got = _read_fragments(idx.astype(np.float32), 8, 32)
+    np.testing.assert_array_equal(got[:, :27], np.arange(8 * 27).reshape(8, 27))  # k = 9 cin + tap
+    np.testing.assert_array_equal(got[:, 27:], -1)
 
 
 @pytest.mark.parametrize("chans", [CHAINS[0], ((16, 16),), ((32, 32),)],
@@ -214,26 +246,69 @@ def test_packed_weights_read_back_as_torch_weights(rng, chans):
     x, blocks = _chain_inputs(rng, 1, 2, 5, 7, chans)
     tblocks = [(_w(w1), _taff(b1), _w(w2), _taff(b2), _w(ws)) for w1, b1, w2, b2, ws in blocks]
     packed = tk.rb_of_chain_params(_t(x), tblocks).numpy()
-    read = _read_fma if chans[0][0] % 8 else _read_mma
+    assert packed.size % 4 == 0  # 16-byte copies
     off = 0
     for (ci, co), (w1, (s1, b1), w2, (s2, b2), ws) in zip(chans, tblocks):
-        for t, taps, cin in ((w1, 9, ci), (s1, 0, 0), (b1, 0, 0), (w2, 9, co), (s2, 0, 0),
-                             (b2, 0, 0), (ws, 1, ci)):
-            n = t.numel()
-            got = packed[off:off + n]
-            if taps:
-                got = read(got, co, cin, taps)
-            np.testing.assert_array_equal(got, t.reshape(got.shape).numpy())
-            off += n
+        (g1, (gs1, gb1), g2, (gs2, gb2), gs), n = _read_block(packed[off:], ci, co)
+        for got, want in ((g1, w1), (gs1, s1), (gb1, b1), (g2, w2), (gs2, s2), (gb2, b2),
+                          (gs, ws)):
+            np.testing.assert_array_equal(got, want.reshape(got.shape).numpy())
+        off += n
     assert off == packed.size
 
 
-def _read_fragments(section, co, k):
-    """B fragments [k // 8][co // 8][lane][2] (csrc/mma.cuh) back to (co, k)."""
-    ks, nb, lane, j = np.indices((k // 8, co // 8, 32, 2)).reshape(4, -1)
-    w = np.full((co, k), np.nan, np.float32)
-    w[nb * 8 + lane // 4, ks * 8 + 4 * j + lane % 4] = section
-    return w
+def _outside_zeroed(t, halo):
+    """t covers the image and ``halo`` pixels around it: 0 outside the image."""
+    if halo == 0:
+        return t
+    out = torch.zeros_like(t)
+    out[..., halo:-halo, halo:-halo] = t[..., halo:-halo, halo:-halo]
+    return out
+
+
+def _pair_plan(x, packed, split, masked=True):
+    """The 3 -> 8 -> 8 pair as csrc/rb_of.cu runs it, from its packed buffer: a
+    zero-filled input with the chain's 4-pixel halo, every region one pixel
+    smaller and 0 outside the image, block 0's shortcut by exact FMAs, block 1's
+    as a k-step into conv2's accumulators with BN2's scale folded into w2."""
+    v = tk._view
+    (w1a, (s1a, b1a), w2a, (s2a, b2a), wsa), n = _read_block(packed, 3, 8)
+    (w1b, (s1b, b1b), w2b, (s2b, b2b), wsb), m = _read_block(packed[n:], 8, 8)
+    assert n + m == packed.size
+    conv = lambda w: torch.from_numpy(np.ascontiguousarray(w)).reshape(*w.shape[:2], 1, 3, 3)
+    one = lambda w: torch.from_numpy(np.ascontiguousarray(w)).reshape(*w.shape[:2], 1, 1, 1)
+    vec = lambda a: v(torch.from_numpy(np.ascontiguousarray(a)))
+    zero = _outside_zeroed if masked else (lambda t, halo: t)
+    xp = F.pad(x, (4, 4, 4, 4))
+    mid = zero(torch.relu(_conv_tf32(xp, conv(w1a), 0, split) * vec(s1a) + vec(b1a)), 3)
+    r = _conv_tf32(mid, conv(w2a), 0, split) * vec(s2a) + vec(b2a)
+    out0 = zero(torch.relu(r + F.conv3d(xp[..., 2:-2, 2:-2], one(wsa))), 2)
+    mid = zero(torch.relu(_conv_tf32(out0, conv(w1b), 0, split) * vec(s1b) + vec(b1b)), 1)
+    w2s = conv(w2b) * torch.from_numpy(s2b.copy()).view(-1, 1, 1, 1, 1)
+    return torch.relu(_conv_tf32(out0[..., 2:-2, 2:-2], one(wsb), 0, split)
+                      + _conv_tf32(mid, w2s, 0, split) + vec(b2b))
+
+
+@pytest.mark.parametrize("b,n,h,w", [(2, 3, 7, 5), (1, 2, 40, 72), (1, 1, 1, 1)],
+                         ids=["tiny", "ragged", "one_pixel"])
+def test_pair_3xtf32_plan_holds_the_fp32_bound(b, n, h, w):
+    """The redesigned pair's numerics and its three zero-outside-the-image
+    masks, emulated on the CPU from the packed buffer with non-zero BN shifts
+    and chip_smoke.py's weight scale (0.1): 3xTF32 is within the fp32 kernel
+    bound (1e-4) of the twin, plain TF32 is not, and neither is the plan with
+    its intermediates left as relu(shift) outside the image."""
+    g = np.random.default_rng(11)
+    x = torch.from_numpy(g.uniform(-1, 1, (b, 3, n, h, w)).astype(np.float32))
+    wt = lambda *s: torch.from_numpy((g.standard_normal(s) * 0.1).astype(np.float32))
+    blocks = [(wt(co, ci, 1, 3, 3), _taff(_bn(g, co)), wt(co, co, 1, 3, 3), _taff(_bn(g, co)),
+               wt(co, ci, 1, 1, 1)) for ci, co in CHAINS[0]]
+    ref = tk.rb_of_chain_ref(x, blocks)
+    packed = tk.rb_of_chain_params(x, blocks).numpy()
+    err = lambda y: (y - ref).abs().max().item()
+    assert err(_pair_plan(x, packed, split=True)) <= 1e-4
+    assert err(_pair_plan(x, packed, split=True, masked=False)) > 1e-2
+    if h * w > 1:  # one pixel: too few products for plain TF32 to miss by much
+        assert err(_pair_plan(x, packed, split=False)) > 1e-4
 
 
 def _head_args(rng, scale=0.2):

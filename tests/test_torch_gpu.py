@@ -164,8 +164,9 @@ def _bf16_bound(ref):
     return 2.0 ** -8 * ref.abs().max().item() + 1e-4
 
 
-#: the persistent grids of fm_conv_bn_relu and motion_head_conv_chain: more tiles
-#: than blocks; H and W no multiple of the tile or of 4; less than one tile
+#: the persistent grids of fm_conv_bn_relu, motion_head_conv_chain, rb2d_residual
+#: and rb_of_chain's pair: more tiles than blocks; H and W no multiple of the
+#: tile or of 4; less than one tile
 GRID_SHAPES = [(2, 10, 304, 544), (1, 3, 45, 101), (1, 1, 3, 50)]
 
 
@@ -193,6 +194,60 @@ def test_motion_head_persistent_grid_matches_twin(cuda, rng, b, n, h, w, dtype):
     ref = tk.motion_head_conv_chain_ref(x.float(), *args)
     bound = 1e-4 if dtype == torch.float32 else _bf16_bound(ref)
     assert (got.float() - ref).abs().max().item() <= bound
+
+
+def _rb2d_args(rng, b, n, h, w, c, dev):
+    return (_act(rng, (b, c, n, h, w), dev), _wt(rng, (c, c, 1, 3, 3), dev), _aff(rng, c, dev),
+            _wt(rng, (c, c, 1, 3, 3), dev), _aff(rng, c, dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,n,h,w", GRID_SHAPES, ids=["many_tiles", "odd", "strip"])
+def test_rb2d_persistent_grid_matches_twin(cuda, rng, b, n, h, w, dtype):
+    """bf16 in, fp32 inside: the kernel rounds only its output."""
+    x, *args = _rb2d_args(rng, b, n, h, w, 8, cuda)
+    x = x.to(dtype)
+    got = tk.rb2d_residual(x, *args)
+    torch.cuda.synchronize()
+    assert tk.launches["rb2d_residual"] == 1 and got.dtype == dtype
+    kept = tk.rb2d_residual(x, *args, params=tk.rb2d_params(x, *args))
+    assert torch.equal(kept, got)
+    ref = tk.rb2d_residual_ref(x.float(), *args)
+    bound = 1e-4 if dtype == torch.float32 else _bf16_bound(ref)
+    assert (got.float() - ref).abs().max().item() <= bound
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,n,h,w", GRID_SHAPES, ids=["many_tiles", "odd", "strip"])
+def test_rb_of_pair_persistent_grid_matches_twin(cuda, rng, b, n, h, w, dtype):
+    """The 3 -> 8 -> 8 pair; bf16 in, fp32 inside: it rounds only its output."""
+    x, blocks = _chain_args(rng, b, n, h, w, CHAINS[0], cuda)
+    x = x.to(dtype)
+    got = tk.rb_of_chain(x, blocks)
+    torch.cuda.synchronize()
+    assert tk.launches["rb_of_chain"] == 1 and got.dtype == dtype
+    ref = tk.rb_of_chain_ref(x.float(), blocks)
+    bound = 1e-4 if dtype == torch.float32 else _bf16_bound(ref)
+    assert (got.float() - ref).abs().max().item() <= bound
+
+
+@pytest.mark.parametrize("c", [8, 16, 32])
+def test_rb2d_takes_more_than_65535_slices(cuda, rng, c):
+    """B * N is no grid dimension of rb2d_residual's launch."""
+    args = _rb2d_args(rng, 1, 65537, 2, 3, c, cuda)
+    got = tk.rb2d_residual(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, tk.rb2d_residual_ref(*args), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("b,n", [(1, 65537), (65537, 1)], ids=["slices", "batches"])
+def test_srd_attention_takes_more_than_65535_slices_or_stacks(cuda, rng, b, n):
+    """N is walked inside a thread and B is part of the block index."""
+    args = (_act(rng, (b, 8, n, 2, 3), cuda), _wt(rng, (8, 8, 3, 1, 1), cuda),
+            _wt(rng, (8, 8, 1, 1, 1), cuda))
+    got = tk.srd_attention_residual(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, tk.srd_attention_residual_ref(*args), atol=1e-4, rtol=0)
 
 
 def test_fm_conv_and_motion_head_take_more_than_65535_slices(cuda, rng):
@@ -223,6 +278,8 @@ def test_wrappers_refuse_non_contiguous_and_unbuilt_widths(cuda, rng):
     w = _wt(rng, (8, 8, 1, 3, 3), cuda)
     with pytest.raises(ValueError, match="contiguous"):
         tk.rb2d_residual(x.transpose(3, 4), w, aff, w, aff)
+    with pytest.raises(ValueError, match="params"):  # another width's packed weights
+        tk.rb2d_residual(x, w, aff, w, aff, params=torch.zeros(2 * (9 * 256 + 32), device=cuda))
     x12 = _act(rng, (1, 12, 2, 16, 16), cuda)
     with pytest.raises(ValueError, match="C in"):
         tk.srd_attention_residual(x12, _wt(rng, (12, 12, 3, 1, 1), cuda),

@@ -65,7 +65,7 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
 def test_sources_are_the_three_kernels():
     names = {p.name for p in _build.sources()}
     assert {"fm_conv.cu", "rb2d.cu", "srd_attention.cu", "rb_of.cu", "motion_head.cu",
-            "common.cuh", "chain.cuh", "mma.cuh"} <= names
+            "common.cuh", "mma.cuh", "res_block.cuh"} <= names
     for p in _build.sources():
         if p.suffix == ".cu":
             text = p.read_text()

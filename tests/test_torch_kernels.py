@@ -225,6 +225,77 @@ def test_fm_conv_3xtf32_plan_holds_the_fp32_bound(rng):
     assert errs[True] <= 1e-4 and errs[False] > 20 * errs[True], errs
 
 
+def _read_rb2d(packed, c):
+    """rb2d_params' buffer as csrc/rb2d.cu reads it (w1, s1, b1, w2, s2, b2, the
+    convs as B fragments [tap][cin // 8][cout // 8][lane][2]), back to (cout,
+    cin, 1, 3, 3) convs and (scale, shift) pairs."""
+    sizes = [9 * c * c, c, c] * 2
+    assert sum(sizes) == packed.size and packed.size % 4 == 0
+    w1, s1, b1, w2, s2, b2 = np.split(packed, np.cumsum(sizes)[:-1])
+    conv = lambda sec: torch.from_numpy(
+        _read_fragments(sec, c, 9 * c).reshape(c, 9, c).transpose(0, 2, 1).copy()
+    ).reshape(c, c, 1, 3, 3)                                   # k = tap * C + cin
+    return conv(w1), (s1, b1), conv(w2), (s2, b2)
+
+
+@pytest.mark.parametrize("c", [8, 16, 32])
+def test_rb2d_weights_read_back_as_torch_weights(rng, c):
+    x, w1, bn1, w2, bn2 = _rb_inputs(rng, 1, 2, 5, 7, c)
+    args = (_w(w1), _taff(bn1), _w(w2), _taff(bn2))
+    g1, (s1, b1), g2, (s2, b2) = _read_rb2d(tk.rb2d_params(_t(x), *args).numpy(), c)
+    for got, want in ((g1, args[0]), (g2, args[2])):
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    for got, want in ((s1, args[1][0]), (b1, args[1][1]), (s2, args[3][0]), (b2, args[3][1])):
+        np.testing.assert_array_equal(got, want.numpy())
+
+
+def _conv_tf32(x, w, split):
+    """A valid (1,3,3) conv as csrc/mma.cuh's k-step computes it, with an fp32
+    sum: hi parts cut to TF32's bits, low parts truncated by the tensor cores,
+    hi.lo + lo.hi summed apart from hi.hi; without ``split``, plain TF32."""
+    import torch.nn.functional as F
+
+    xh, wh = _tf32_trunc(x), _tf32_trunc(w)
+    y = F.conv3d(xh, wh)
+    if split:
+        y = y + (F.conv3d(_tf32_trunc(x - xh), wh) + F.conv3d(xh, _tf32_trunc(w - wh)))
+    return y
+
+
+@pytest.mark.parametrize("c", [8, 16])
+@pytest.mark.parametrize("b,n,h,w", [(2, 3, 7, 5), (1, 2, 40, 72), (1, 1, 1, 1)],
+                         ids=["tiny", "ragged", "one_pixel"])
+def test_rb2d_3xtf32_plan_holds_the_fp32_bound(b, n, h, w, c):
+    """rb2d_residual as csrc/rb2d.cu runs it, emulated on the CPU from the
+    packed buffer: a zero-filled input tile with the pair's 2-pixel halo,
+    conv1's region 0 outside the image, BN2's scale folded into w2, conv2's
+    accumulators started from the exact fp32 x.  With non-zero BN shifts and
+    chip_smoke.py's weight scale (0.1), 3xTF32 is within 1e-4 of the twin,
+    plain TF32 is not, and neither is a region left as relu(shift) outside the
+    image."""
+    import torch.nn.functional as F
+
+    g = np.random.default_rng(13)
+    x = torch.from_numpy(g.uniform(-1, 1, (b, c, n, h, w)).astype(np.float32))
+    wt = lambda: torch.from_numpy((g.standard_normal((c, c, 1, 3, 3)) * 0.1).astype(np.float32))
+    args = (wt(), _taff(_bn(g, c)), wt(), _taff(_bn(g, c)))
+    ref = tk.rb2d_residual_ref(x, *args)
+    w1, (s1, b1), w2, (s2, b2) = _read_rb2d(tk.rb2d_params(x, *args).numpy(), c)
+    v = lambda a: tk._view(torch.from_numpy(a.copy()))
+    inside = F.pad(torch.ones(h, w), (1, 1, 1, 1))
+    errs = {}
+    for split, masked in ((True, True), (False, True), (True, False)):
+        mid = torch.relu(_conv_tf32(F.pad(x, (2, 2, 2, 2)), w1, split) * v(s1) + v(b1))
+        if masked:
+            mid = mid * inside
+        w2s = w2 * torch.from_numpy(s2.copy()).view(-1, 1, 1, 1, 1)
+        y = torch.relu(x + _conv_tf32(mid, w2s, split) + v(b2))
+        errs[split, masked] = (y - ref).abs().max().item()
+    assert errs[True, True] <= 1e-4 and errs[True, False] > 1e-2, errs
+    if h * w > 1:  # one pixel: too few products for plain TF32 to miss by much
+        assert errs[False, True] > 1e-4, errs
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(rng):
     x = torch.zeros(1, 3, 2, 8, 8)
     w, sc, sh = torch.zeros(8, 3, 1, 9, 9), torch.ones(8), torch.zeros(8)
@@ -306,3 +377,34 @@ def test_wrapper_checks_the_packed_buffer_it_is_given():
     for bad in (good[:-1], good.double(), good.to("meta"), torch.cat([good, good])[::2]):
         with pytest.raises(ValueError, match="params"):
             tk._use_params(bad, x, *plan)
+
+
+def test_rb2d_params_are_packed_once_and_checked(rng):
+    """FMModule keeps rb2d_residual's packed weights in a ParamCache(rb2d_params):
+    one packing for any number of forwards; the wrapper refuses a buffer that
+    is not that packing's size, type or device."""
+    import types
+
+    from dffx_torch.models.layers import FMModule
+
+    assert FMModule()._rb_params._pack is tk.rb2d_params
+    x, w1, bn1, w2, bn2 = _rb_inputs(rng, 1, 2, 5, 7, 8)
+    args = (_w(w1), _taff(bn1), _w(w2), _taff(bn2))
+    packs = []
+
+    def pack(on_card, *a):
+        packs.append(on_card.device)
+        return tk.rb2d_params(_t(x), *a)
+
+    cache = tk.ParamCache(pack)
+    on_card = types.SimpleNamespace(device=torch.device("cuda", 0))
+    good = cache(on_card, *args)
+    assert cache(on_card, *args) is good and len(packs) == 1
+    assert good.numel() == 2 * (9 * 64 + 16)
+    plan = tk._rb2d_plan(*args)
+    assert tk._use_params(good, _t(x), *plan) is good
+    torch.testing.assert_close(tk._use_params(None, _t(x), *plan), good, rtol=0, atol=0)
+    for bad in (good[:-1], good.double(), good.to("meta"), torch.cat([good, good])[::2]):
+        with pytest.raises(ValueError, match="params"):
+            tk._use_params(bad, _t(x), *plan)
+    assert cache(_t(x), *args) is None and len(packs) == 1  # a CPU tensor: the twin, no packing
