@@ -17,6 +17,13 @@ work (``bound_ms``).  Then it drives two paths:
   synthetic 10 x 608 x 1088 stacks (the real-scene shape) at batch 1 in fp32
   and bf16.
 
+Both run the default graph (``dffx_torch.models.packed.PACKED_DEFAULT``:
+DFFNet's EFDs and full-resolution stage packed space-to-depth, or not).  The
+packed graph is held against the unpacked one on the card
+(``packed_vs_plain``), goes through the goldens whatever the default, and the
+graph that is not the default is served for fewer requests, so that both rates
+stand in the output.  The kernels a forward launches are the same either way.
+
 Each path's serving run starts with every launch count at 0 and checks the
 counts just after it.  Every phase prints one JSON line and raises on
 failure.  The second-to-last line lists each kernel with its launches in the
@@ -287,6 +294,27 @@ def check_depth(torch, outs, fd, dtype, shape, phase, stack, launches) -> None:
     check(all(tuple(t.shape) == shape for t in outs), f"{phase} output shapes")
 
 
+def packed_vs_plain(torch, tk, net, other, args, names, default_outs, launches, shape) -> None:
+    """The packed graph against the unpacked one on the card, same weights and
+    inputs: fp32 within ``FP32_ATOL`` on every output, bf16 reported.  ``net``
+    runs the default graph and ``default_outs`` holds its outputs per dtype
+    (on the CPU); ``other`` runs the other graph here."""
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tk.reset_launches()
+        with torch.inference_mode():
+            o = other(args[0].to(dtype), *args[1:])
+        torch.cuda.synchronize()
+        check_launches(tk.launches, launches, f"packed_vs_plain {dtype}")
+        errs[dtype] = max_errs(names, o, default_outs[dtype])
+    check(net.DFF_net.packed != other.DFF_net.packed, "packed_vs_plain: one graph twice")
+    emit({"phase": "packed_vs_plain", "shape": shape, "default_packed": net.DFF_net.packed,
+          "fp32_max_abs_err": errs[torch.float32], "atol": FP32_ATOL,
+          "bf16_vs_bf16_max_abs_err": errs[torch.bfloat16]})
+    check(max(errs[torch.float32].values()) <= FP32_ATOL,
+          f"packed against unpacked at {shape}: {errs[torch.float32]}")
+
+
 def serve(torch, tf, reqs, smi, phase) -> int:
     """Two warm-up requests (cuDNN algorithm choice, allocator), then the timed
     ones; prints the rate and returns the number of forwards."""
@@ -298,8 +326,9 @@ def serve(torch, tf, reqs, smi, phase) -> int:
         o = tf(*r)
         check(all(bool(torch.isfinite(t).all()) for t in o), f"{phase} output")
     wall = time.perf_counter() - t0
-    emit({"phase": phase, "device": smi, "dtype": str(tf.dtype).split(".")[1],
-          "batch": int(reqs[0][0].shape[0]), "shape": list(reqs[0][0].shape[1:4]),
+    emit({"phase": phase, "device": smi, "packed": tf.model.DFF_net.packed,
+          "dtype": str(tf.dtype).split(".")[1], "batch": int(reqs[0][0].shape[0]),
+          "shape": list(reqs[0][0].shape[1:4]),
           "requests": len(reqs) - 2, "stacks_per_s": 1.0 / tf.avg_time,
           "avg_time_s": tf.avg_time, "wall_stacks_per_s": tf.count / wall})
     return len(reqs)
@@ -323,6 +352,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from dffx_torch.eval import TimedForward, load_params_auto
+    from dffx_torch.models.packed import PACKED_DEFAULT
     from dffx_torch.ops import _build
     from dffx_torch.ops import kernels as tk
 
@@ -350,23 +380,28 @@ def main() -> int:
     # 3. each kernel against its twin on the card
     path_rows = phase_kernels(torch, tk, dev)
 
-    # 4. DFFNet: goldens through the GPU forward, kernels included
+    # 4. DFFNet: goldens through the GPU forward, kernels included; on the
+    # default graph, and through the packed one whatever the default
     fs_np, fd_np = golden_inputs(np)
-    net = load_params_auto(7, device=dev)
-    tk.reset_launches()
-    with torch.inference_mode():
-        mid, _, _, pred3 = net(torch.from_numpy(fs_np).to(dev), torch.from_numpy(fd_np).to(dev))
-    torch.cuda.synchronize()
     gold = np.load(ROOT / "tests" / "goldens" / "forward_v1.npz")
-    errs = {"mid": float(np.abs(mid.cpu().numpy() - gold["mid"]).max()),
-            "pred3": float(np.abs(pred3.cpu().numpy() - gold["pred3"]).max())}
-    emit({"phase": "goldens", "max_abs_err": errs, "atol": GOLDEN_ATOL,
-          "launches": dict(tk.launches)})
-    check(max(errs.values()) <= GOLDEN_ATOL, f"goldens: {errs}")
-    check_launches(tk.launches, DFFNET_LAUNCHES, "goldens")
+    golden_graphs = sorted({PACKED_DEFAULT, True})
+    for packed in golden_graphs:
+        net = load_params_auto(7, device=dev, packed=packed)
+        tk.reset_launches()
+        with torch.inference_mode():
+            mid, _, _, pred3 = net(torch.from_numpy(fs_np).to(dev),
+                                   torch.from_numpy(fd_np).to(dev))
+        torch.cuda.synchronize()
+        errs = {"mid": float(np.abs(mid.cpu().numpy() - gold["mid"]).max()),
+                "pred3": float(np.abs(pred3.cpu().numpy() - gold["pred3"]).max())}
+        emit({"phase": "goldens", "packed": packed, "max_abs_err": errs, "atol": GOLDEN_ATOL,
+              "launches": dict(tk.launches)})
+        check(max(errs.values()) <= GOLDEN_ATOL, f"goldens packed={packed}: {errs}")
+        check_launches(tk.launches, DFFNET_LAUNCHES, "goldens")
 
     # 5. DFFNet at the bench shape, fp32 and bf16, against the CPU twins
     net = load_params_auto(0, device=dev)
+    other = load_params_auto(0, device=dev, packed=not PACKED_DEFAULT)
     rng = np.random.default_rng(1)
     fs = torch.from_numpy(rng.uniform(-1, 1, (1, N, H, W, 3)).astype(np.float32))
     fd = torch.from_numpy((1 / np.linspace(0.2, 3.0, N, dtype=np.float32))[None])
@@ -385,40 +420,47 @@ def main() -> int:
     heads = ["mid", "pred1", "pred2", "pred3"]
     cpu_err = max_errs(heads, outs[torch.float32], cpu_outs)
     bf16_err = max_errs(heads, outs[torch.bfloat16], outs[torch.float32])
-    emit({"phase": "forward_vs_cpu", "fp32_max_abs_err": cpu_err, "atol": FP32_ATOL,
-          "bf16_vs_fp32_max_abs_err": bf16_err})
+    emit({"phase": "forward_vs_cpu", "packed": PACKED_DEFAULT, "fp32_max_abs_err": cpu_err,
+          "atol": FP32_ATOL, "bf16_vs_fp32_max_abs_err": bf16_err})
     check(max(cpu_err.values()) <= FP32_ATOL, f"GPU vs CPU forward: {cpu_err}")
+    packed_vs_plain(torch, tk, net, other, (fs.to(dev), fd.to(dev)), heads, outs,
+                    DFFNET_LAUNCHES, [1, N, H, W])
 
-    # 6. DFFNet serving through TimedForward; counts from this run only
-    tk.reset_launches()
-    forwards = 0
-    for dtype in (torch.float32, torch.bfloat16):
-        for batch, requests in ((1, 10), (4, 5)):
-            reqs = [(rng.uniform(-1, 1, (batch, N, H, W, 3)).astype(np.float32),
-                     np.tile(fd.numpy(), (batch, 1))) for _ in range(requests + 2)]
-            forwards += serve(torch, TimedForward(net, dtype=dtype), reqs, smi, "serving")
-    served = dict(tk.launches)
-    check_launches(served, {k: v * forwards for k, v in DFFNET_LAUNCHES.items()}, "serving")
+    # 6. DFFNet serving through TimedForward; counts from this run only.  The
+    # default graph at full depth, then the other graph for fewer requests.
+    for model, depth in ((net, ((1, 10), (4, 5))), (other, ((1, 4), (4, 2)))):
+        tk.reset_launches()
+        forwards = 0
+        for dtype in (torch.float32, torch.bfloat16):
+            for batch, requests in depth:
+                reqs = [(rng.uniform(-1, 1, (batch, N, H, W, 3)).astype(np.float32),
+                         np.tile(fd.numpy(), (batch, 1))) for _ in range(requests + 2)]
+                forwards += serve(torch, TimedForward(model, dtype=dtype), reqs, smi, "serving")
+        check_launches(tk.launches, {k: v * forwards for k, v in DFFNET_LAUNCHES.items()},
+                       "serving")
+    del other
 
     # 7. end-to-end: goldens (seed 7, tests/test_golden_regression.py's fovs)
-    e2e = load_params_auto(7, device=dev, e2e=True)
     fovs_np = np.linspace(1.0, 1.02, 10, dtype=np.float32)[None]
-    tk.reset_launches()
-    with torch.inference_mode():
-        o = e2e(*(torch.from_numpy(a).to(dev) for a in (fs_np, fd_np, fovs_np)))
-    torch.cuda.synchronize()
-    errs = {"e2e_pred3": float(np.abs(o[3].cpu().numpy() - gold["e2e_pred3"]).max()),
-            "e2e_warped_sum": float(np.abs(o[4].sum(dim=(2, 3)).cpu().numpy()
-                                           - gold["e2e_warped_sum"]).max())}
-    emit({"phase": "e2e_goldens", "max_abs_err": errs,
-          "atol": {"e2e_pred3": GOLDEN_ATOL, "e2e_warped_sum": WARPED_SUM_ATOL},
-          "launches": dict(tk.launches)})
-    check(errs["e2e_pred3"] <= GOLDEN_ATOL and errs["e2e_warped_sum"] <= WARPED_SUM_ATOL,
-          f"e2e goldens: {errs}")
-    check_launches(tk.launches, E2E_LAUNCHES, "e2e goldens")
+    for packed in golden_graphs:
+        e2e = load_params_auto(7, device=dev, e2e=True, packed=packed)
+        tk.reset_launches()
+        with torch.inference_mode():
+            o = e2e(*(torch.from_numpy(a).to(dev) for a in (fs_np, fd_np, fovs_np)))
+        torch.cuda.synchronize()
+        errs = {"e2e_pred3": float(np.abs(o[3].cpu().numpy() - gold["e2e_pred3"]).max()),
+                "e2e_warped_sum": float(np.abs(o[4].sum(dim=(2, 3)).cpu().numpy()
+                                               - gold["e2e_warped_sum"]).max())}
+        emit({"phase": "e2e_goldens", "packed": packed, "max_abs_err": errs,
+              "atol": {"e2e_pred3": GOLDEN_ATOL, "e2e_warped_sum": WARPED_SUM_ATOL},
+              "launches": dict(tk.launches)})
+        check(errs["e2e_pred3"] <= GOLDEN_ATOL and errs["e2e_warped_sum"] <= WARPED_SUM_ATOL,
+              f"e2e goldens packed={packed}: {errs}")
+        check_launches(tk.launches, E2E_LAUNCHES, "e2e goldens")
 
     # 8. end-to-end forward against the CPU at a medium shape; bf16 against fp32
     e2e = load_params_auto(0, device=dev, e2e=True)
+    other = load_params_auto(0, device=dev, e2e=True, packed=not PACKED_DEFAULT)
     cpu_e2e = load_params_auto(0, device="cpu", e2e=True)
     fd10 = torch.from_numpy((1 / np.linspace(0.2, 3.0, 10, dtype=np.float32))[None])
     fovs = torch.from_numpy((1.0 + np.linspace(0.0, 0.03, 10)
@@ -442,20 +484,28 @@ def main() -> int:
         cpu_motion = cpu_e2e.optical_flow_aggregation(fs, fovs)[1]
     cpu_err = max_errs(names, outs[torch.float32], (*cpu_o, cpu_motion))
     bf16_err = max_errs(names, outs[torch.bfloat16], outs[torch.float32])
-    emit({"phase": "e2e_forward_vs_cpu", "shape": [1, 10, MH, MW], "fp32_max_abs_err": cpu_err,
+    emit({"phase": "e2e_forward_vs_cpu", "packed": PACKED_DEFAULT, "shape": [1, 10, MH, MW],
+          "fp32_max_abs_err": cpu_err,
           "atol": FP32_ATOL, "bf16_vs_fp32_max_abs_err": bf16_err,
           "motion_abs_max_fp32": outs[torch.float32][5].abs().amax(dim=(0, 1)).tolist()})
     check(max(cpu_err.values()) <= FP32_ATOL, f"e2e GPU vs CPU forward: {cpu_err}")
+    packed_vs_plain(torch, tk, e2e, other, (fs.to(dev), fd10.to(dev), fovs.to(dev)),
+                    names[:5], {k: v[:5] for k, v in outs.items()}, E2E_LAUNCHES,
+                    [1, 10, MH, MW])
 
-    # 9. end-to-end serving at the real-scene shape; counts from this run only
-    tk.reset_launches()
-    forwards = 0
-    for dtype in (torch.float32, torch.bfloat16):
-        reqs = [(rng.uniform(-1, 1, (1, 10, EH, EW, 3)).astype(np.float32), fd10.numpy(),
-                 fovs.numpy()) for _ in range(5 + 2)]
-        forwards += serve(torch, TimedForward(e2e, dtype=dtype), reqs, smi, "e2e_serving")
-    served = dict(tk.launches)
-    check_launches(served, {k: v * forwards for k, v in E2E_LAUNCHES.items()}, "e2e serving")
+    # 9. end-to-end serving at the real-scene shape; counts from this run only.
+    # The other graph first, for fewer requests; then the default graph, whose
+    # counts go into the kernels line.
+    for model, requests in ((other, 2), (e2e, 5)):
+        tk.reset_launches()
+        forwards = 0
+        for dtype in (torch.float32, torch.bfloat16):
+            reqs = [(rng.uniform(-1, 1, (1, 10, EH, EW, 3)).astype(np.float32), fd10.numpy(),
+                     fovs.numpy()) for _ in range(requests + 2)]
+            forwards += serve(torch, TimedForward(model, dtype=dtype), reqs, smi, "e2e_serving")
+        served = dict(tk.launches)
+        check_launches(served, {k: v * forwards for k, v in E2E_LAUNCHES.items()},
+                       "e2e serving")
 
     emit({"phase": "time", "build_seconds": seconds,
           "run_seconds": time.perf_counter() - t_start, "limit_seconds": 1200})

@@ -2,6 +2,7 @@
 """Timings of dffx_torch's CUDA kernels and forwards on one NVIDIA GPU.
 
     python3 dffx_torch/bench.py [--root TREE] [--what kernels,mma,stages,serving]
+                                [--graph unpacked,packed,...] [--cudnn-benchmark]
 
 Every line it prints is one JSON object with the card's name and power limit
 (``nvidia-smi --query-gpu=name,power.limit``).  ``--root`` names the tree whose
@@ -24,12 +25,26 @@ tree before its redesign, one packed buffer now).
                 events at module boundaries), then ``torch.profiler``'s device
                 time by kernel name and the device's busy share, for it and
                 for DFFNet alone at 10 x 384 x 384 (batch 1 fp32, batch 4 bf16);
-* ``serving``   ``TimedForward`` at the two serving shapes, fp32 and bf16.
+* ``serving``   ``TimedForward`` at the two serving shapes, fp32 and bf16;
+* ``pieces``    DFFNet's full-resolution stage and its neighbours alone, at the
+                shapes the two serving paths give them: each 16 -> 8 deconv as
+                cuDNN runs it, in ``channels_last_3d`` and as a packed conv,
+                the whole stage unpacked and packed, and both EFDs unpacked
+                and packed (``models/packed.py``).
+
+``--graph`` names the graphs that ``stages`` and ``serving`` run, in turns, as a
+list: ``unpacked``; ``packed`` (both EFDs and the full-resolution stage
+space-to-depth, what the JAX package serves); and two that exist only here,
+for measurement: ``deconvs`` (unpacked, but the two 16 -> 8 full-resolution
+deconvs lowered to a packed conv and an unpack) and ``tail`` (the
+full-resolution stage packed, the EFDs not).  A tree from before the packed
+path takes ``unpacked`` only.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import statistics
 import subprocess
@@ -43,6 +58,44 @@ EH, EW = 608, 1088
 #: the function that packs each kernel's weights, where the wrapper packs them
 PACKERS = {"fm_conv_bn_relu": "fm_conv_params", "rb2d_residual": "rb2d_params",
            "rb_of_chain": "rb_of_chain_params", "motion_head_conv_chain": "motion_head_params"}
+
+
+GRAPHS = ("unpacked", "deconvs", "tail", "packed")
+
+
+def lowered_deconv(deconv):
+    """A forward for the reference's one deconv configuration as a packed
+    conv (``pack_deconv``) and an ``unpack``; the scattered weight is kept."""
+    import torch.nn.functional as F
+
+    from dffx_torch.models import packed as pk
+    from dffx_torch.ops.kernels import ParamCache
+
+    cache = ParamCache(lambda x, w: pk.pack_deconv(w.to(x.dtype)))
+
+    def forward(x):
+        w = cache.or_packed(x, deconv.weight)
+        return pk.unpack(F.conv3d(F.pad(x, pk._PAD_DECONV), w))
+    return forward
+
+
+def make_net(graph: str, dev, e2e: bool):
+    """The seed-0 network of ``graph`` on ``dev``."""
+    from dffx_torch.eval import load_params_auto
+
+    kw = {}
+    if "packed" in inspect.signature(load_params_auto).parameters:
+        kw["packed"] = graph in ("tail", "packed")
+    elif graph != "unpacked":
+        raise SystemExit(f"bench: this tree has no packed path, so no graph {graph!r}")
+    net = load_params_auto(0, device=dev, e2e=e2e, **kw)
+    dff = net.DFF_net
+    if graph == "tail":  # the EFDs as the unpacked graph runs them
+        dff._down = lambda level, x, x_packed=None: (dff.FM_conv1, dff.FM_conv2)[level](x)
+    elif graph == "deconvs":
+        for deconv in (dff.deconv_3[0], dff.dres4.conv6[0]):
+            deconv.forward = lowered_deconv(deconv)
+    return net
 
 
 def emit(obj) -> None:
@@ -267,12 +320,11 @@ def bench_mma(torch, _build, dev, smi, reps):
               "note": "8 independent accumulators per warp"})
 
 
-def bench_stages(np, torch, tk, dev, smi):
+def bench_stages(np, torch, tk, dev, smi, graph):
     """E2E forward at the real-scene shape, by stage and by kernel name."""
-    from dffx_torch.eval import load_params_auto
     from dffx_torch.models import alignnet
 
-    net = load_params_auto(0, device=dev, e2e=True)
+    net = make_net(graph, dev, e2e=True)
     flow = net.optical_flow_aggregation
     rng = np.random.default_rng(1)
     fd = torch.from_numpy((1 / np.linspace(0.2, 3.0, 10, dtype=np.float32))[None]).to(dev)
@@ -297,7 +349,7 @@ def bench_stages(np, torch, tk, dev, smi):
               "conv3 head (motion_head_conv_chain + pool)": flow.conv3}
     for stage, mod in stages.items():
         mod.forward = timed(stage, mod.forward)
-    alignnet.warp_cf = timed("four warps", alignnet.warp_cf)
+    warp_cf, alignnet.warp_cf = alignnet.warp_cf, timed("four warps", alignnet.warp_cf)
     for dtype in (torch.float32, torch.bfloat16):
         fs = torch.from_numpy(rng.uniform(-1, 1, (1, 10, EH, EW, 3)).astype(np.float32)).to(
             dev, dtype)
@@ -319,14 +371,16 @@ def bench_stages(np, torch, tk, dev, smi):
         med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
         total = statistics.median(totals)
         med["everything else (motion volumes, permutes)"] = total - sum(med.values())
-        emit({"what": "stages", "device": smi, "dtype": str(dtype).split(".")[1],
+        emit({"what": "stages", "device": smi, "graph": graph,
+              "dtype": str(dtype).split(".")[1],
               "shape": [1, 10, EH, EW], "forwards": len(totals), "total_ms": total,
               "stage_ms": med})
-        emit({"what": "profile", "device": smi, "model": "e2e", "batch": 1,
+        emit({"what": "profile", "device": smi, "graph": graph, "model": "e2e", "batch": 1,
               "dtype": str(dtype).split(".")[1], "shape": [10, EH, EW],
               **profile_forwards(torch, lambda: net(fs, fd, fovs))})
+    alignnet.warp_cf = warp_cf
     # DFFNet alone at its serving shape: device time by kernel name, busy share
-    dff = load_params_auto(0, device=dev)
+    dff = make_net(graph, dev, e2e=False)
     for dtype, batch in ((torch.float32, 1), (torch.bfloat16, 4)):
         fs = torch.from_numpy(rng.uniform(-1, 1, (batch, N, H, W, 3)).astype(np.float32)).to(
             dev, dtype)
@@ -334,7 +388,7 @@ def bench_stages(np, torch, tk, dev, smi):
         with torch.inference_mode():
             for _ in range(3):
                 dff(fs, fdb)
-        emit({"what": "profile", "device": smi, "model": "dffnet", "batch": batch,
+        emit({"what": "profile", "device": smi, "graph": graph, "model": "dffnet", "batch": batch,
               "dtype": str(dtype).split(".")[1], "shape": [N, H, W],
               **profile_forwards(torch, lambda: dff(fs, fdb), forwards=6)})
 
@@ -364,14 +418,14 @@ def profile_forwards(torch, forward, forwards: int = 3) -> dict:
                                    for k, ms, c in rows[:14]]}
 
 
-def bench_serving(np, torch, dev, smi):
-    from dffx_torch.eval import TimedForward, load_params_auto
+def bench_serving(np, torch, dev, smi, graph):
+    from dffx_torch.eval import TimedForward
 
     rng = np.random.default_rng(1)
     fd = (1 / np.linspace(0.2, 3.0, 10, dtype=np.float32))[None]
     fovs = np.linspace(1.0, 1.03, 10, dtype=np.float32)[None]
     for e2e, (h, w), batches in ((False, (H, W), (1, 4)), (True, (EH, EW), (1,))):
-        net = load_params_auto(0, device=dev, e2e=e2e)
+        net = make_net(graph, dev, e2e)
         for dtype in (torch.float32, torch.bfloat16):
             for batch in batches:
                 tf = TimedForward(net, dtype=dtype)
@@ -381,10 +435,85 @@ def bench_serving(np, torch, dev, smi):
                         tf.total, tf.count = 0.0, 0
                     tf(rng.uniform(-1, 1, (batch, 10, h, w, 3)).astype(np.float32),
                        np.tile(fd, (batch, 1)), *extra)
-                emit({"what": "serving", "device": smi, "model": "e2e" if e2e else "dffnet",
+                emit({"what": "serving", "device": smi, "graph": graph,
+                      "cudnn_benchmark": torch.backends.cudnn.benchmark,
+                      "model": "e2e" if e2e else "dffnet",
                       "dtype": str(dtype).split(".")[1], "batch": batch, "shape": [10, h, w],
                       "requests": 8, "avg_time_ms": tf.avg_time * 1e3,
                       "stacks_per_s": 1.0 / tf.avg_time})
+
+
+def bench_pieces(np, torch, dev, smi, reps):
+    """The full-resolution stage (``deconv_3``, ``dres4``, ``classif3``), its two
+    16 -> 8 deconvs and both EFDs alone, on random activations at the shapes
+    the serving paths give them, unpacked and, where the tree has
+    ``models/packed.py``, packed.  Medians of single calls, CUDA events."""
+    import torch.nn.functional as F
+
+    try:
+        from dffx_torch.models import packed as pk
+    except ImportError:
+        pk = None
+    dff = make_net("unpacked", dev, e2e=False).DFF_net
+    rng = np.random.default_rng(2)
+
+    def act(dtype, b, c, n, h, w):
+        return torch.from_numpy(rng.uniform(-1, 1, (b, c, n, h, w)).astype(np.float32)).to(
+            dev, dtype)
+
+    def unpacked_tail(out_in, fm, pre, out):
+        out2 = dff.deconv_3(out_in)
+        o, _ = dff.dres4(torch.cat([out2, fm], dim=1), pre, out)
+        return dff.classif3(out2 + o)[:, 0]
+
+    cl = torch.channels_last_3d
+    for tag, dtype, (b, n, h, w) in (("dffnet_b1", torch.float32, (1, N, H, W)),
+                                     ("dffnet_b4", torch.bfloat16, (4, N, H, W)),
+                                     ("e2e_b1", torch.float32, (1, 10, EH, EW)),
+                                     ("e2e_b1", torch.bfloat16, (1, 10, EH, EW))):
+        out_in, pre, out = (act(dtype, b, 16, n, h // 2, w // 2) for _ in range(3))
+        fm = act(dtype, b, 8, n, h, w)
+        ms = {}
+        with torch.inference_mode():
+            for name, mod in (("deconv_3", dff.deconv_3[0]), ("dres4.conv6", dff.dres4.conv6[0])):
+                ms[f"{name} cudnn"] = median_ms(torch, lambda: mod(out_in), reps)
+                x_cl, w_cl = out_in.to(memory_format=cl), mod.weight.to(dtype).to(memory_format=cl)
+                ms[f"{name} channels_last_3d"] = median_ms(
+                    torch, lambda: F.conv_transpose3d(x_cl, w_cl, stride=(1, 2, 2), padding=1,
+                                                      output_padding=(0, 1, 1)), reps)
+                ms[f"{name} channels_last_3d with both copies"] = median_ms(
+                    torch, lambda: F.conv_transpose3d(
+                        out_in.to(memory_format=cl), w_cl, stride=(1, 2, 2), padding=1,
+                        output_padding=(0, 1, 1)).contiguous(), reps)
+                if pk is not None:
+                    wp = pk.pack_deconv(mod.weight.to(dtype))
+                    ms[f"{name} packed conv"] = median_ms(
+                        torch, lambda: F.conv3d(F.pad(out_in, pk._PAD_DECONV), wp), reps)
+                    ms[f"{name} packed conv + unpack"] = median_ms(
+                        torch, lambda: pk.unpack(F.conv3d(F.pad(out_in, pk._PAD_DECONV), wp)),
+                        reps)
+            ms["stage unpacked"] = median_ms(
+                torch, lambda: unpacked_tail(out_in, fm, pre, out), reps)
+            half = act(dtype, b, 16, n, h // 2, w // 2)
+            efds = ((dff.FM_conv1[0], fm, "EFD 8->16"), (dff.FM_conv2[0], half, "EFD 16->32"))
+            for efd, x, name in efds:
+                ms[f"{name} unpacked"] = median_ms(torch, lambda: efd(x), reps)
+            if pk is not None:
+                params = pk.stage_params(out_in, *pk.stage_sources(dff.deconv_3, dff.dres4,
+                                                                   dff.classif3[0]))
+                fmp = pk.pack(fm)
+                ms["pack(fm)"] = median_ms(torch, lambda: pk.pack(fm), reps)
+                ms["stage packed (fm packed already)"] = median_ms(
+                    torch, lambda: pk.packed_stage(dff.dres4, out_in, fmp, pre, out, params), reps)
+                for efd, x, name in efds:
+                    xp, w_s2 = pk.pack(x), pk.efd_params(x, efd.stride_conv[0].weight)
+                    ms[f"{name} packed (input packed already)"] = median_ms(
+                        torch, lambda: pk.packed_efd(efd, xp, w_s2), reps)
+                ms["pack(half)"] = median_ms(torch, lambda: pk.pack(half), reps)
+        emit({"what": "pieces", "device": smi, "shape": tag, "dtype": str(dtype).split(".")[1],
+              "cudnn_benchmark": torch.backends.cudnn.benchmark, "stack": [b, n, h, w], "ms": ms})
+        del out_in, pre, out, fm, half
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -394,7 +523,14 @@ def main() -> int:
     ap.add_argument("--what", default="kernels,mma,stages,serving")
     ap.add_argument("--only", default="", help="kernels mode: these kernels only (a,b,...)")
     ap.add_argument("--reps", type=int, default=30)
+    ap.add_argument("--graph", default="unpacked,packed",
+                    help=f"stages and serving: the graphs to run, in turns, of {GRAPHS}")
+    ap.add_argument("--cudnn-benchmark", action="store_true",
+                    help="pieces, stages and serving under torch.backends.cudnn.benchmark = True")
     ns = ap.parse_args()
+    graphs = ns.graph.split(",")
+    if set(graphs) - set(GRAPHS):
+        ap.error(f"--graph takes {GRAPHS}, got {ns.graph!r}")
     sys.path.insert(0, str(ns.root.resolve()))
     import numpy as np
     import torch
@@ -422,10 +558,16 @@ def main() -> int:
                       tuple(k for k in ns.only.split(",") if k))
     if "mma" in what:
         bench_mma(torch, _build, dev, smi, ns.reps)
-    if "stages" in what:
-        bench_stages(np, torch, tk, dev, smi)
-    if "serving" in what:
-        bench_serving(np, torch, dev, smi)
+    # for the whole process, before its first conv: cuDNN's choice for a shape
+    # is kept, and setting the flag later does not search again
+    torch.backends.cudnn.benchmark = ns.cudnn_benchmark
+    if "pieces" in what:
+        bench_pieces(np, torch, dev, smi, ns.reps)
+    for graph in graphs:
+        if "stages" in what:
+            bench_stages(np, torch, tk, dev, smi, graph)
+        if "serving" in what:
+            bench_serving(np, torch, dev, smi, graph)
     return 0
 
 

@@ -1,5 +1,6 @@
-"""Serving utilities: weights from a reference ``.pth`` or a seed, and a timed
-eval forward with the reference's ``AVG_time`` semantics."""
+"""Serving utilities: weights from a reference ``.pth``, a ``dffx`` ``.ckpt``
+or a seed, and a timed eval forward with the reference's ``AVG_time``
+semantics."""
 
 from __future__ import annotations
 
@@ -10,23 +11,32 @@ from typing import Union
 import torch
 from torch import nn
 
-from dffx_torch.checkpoint import load_jax_params, load_torch_checkpoint
+from dffx_torch.checkpoint import load_dffx_checkpoint, load_jax_params, load_torch_checkpoint
 from dffx_torch.models import E2ENetwork, Network, e2e_init_params, init_params
+from dffx_torch.models.packed import PACKED_DEFAULT
 
 
-def load_params_auto(source: Union[str, int], *, device="cuda", e2e: bool = False) -> nn.Module:
+def load_params_auto(source: Union[str, int], *, device="cuda", e2e: bool = False,
+                     packed: bool = PACKED_DEFAULT) -> nn.Module:
     """An eval-mode ``Network`` (depth only) or, with ``e2e``, ``E2ENetwork``
-    (alignment + depth) on ``device``, with weights from a reference ``.pth``
-    path or from an int seed (``init_params`` / ``e2e_init_params``).  The
+    (alignment + depth) on ``device``.  The weights come from a reference
+    ``.pth`` path (a torch state dict), from any other path as a checkpoint
+    the JAX package wrote (``dffx.checkpoint.save``, format v2: a ``.ckpt`` of
+    the train CLI, whose ``params`` are served) or from an int seed
+    (``init_params`` / ``e2e_init_params``).  ``packed``: DFFNet's EFDs and
+    full-resolution stage run space-to-depth (``models/packed.py``), the
+    graph the JAX package serves; the weights are the same either way.  The
     default device is the GPU: without one this raises, and the CPU is used
     only when asked for (``device="cpu"``)."""
-    net = E2ENetwork() if e2e else Network()
+    net = E2ENetwork(packed) if e2e else Network(packed)
     if isinstance(source, int):
         load_jax_params(net, (e2e_init_params if e2e else init_params)(source))
-    elif os.path.isfile(source):
+    elif not os.path.isfile(source):
+        raise FileNotFoundError(f"checkpoint {source!r} not found")
+    elif source.endswith(".pth"):
         net.load_state_dict(load_torch_checkpoint(source))
     else:
-        raise FileNotFoundError(f"checkpoint {source!r} not found")
+        load_jax_params(net, load_dffx_checkpoint(source))
     return net.to(device).eval()
 
 

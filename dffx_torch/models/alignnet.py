@@ -26,6 +26,7 @@ from torch import nn
 
 from dffx_torch.models.dffnet import DFFNet
 from dffx_torch.models.layers import Conv3d, ConvBN3d, init_module_params
+from dffx_torch.models.packed import PACKED_DEFAULT
 from dffx_torch.ops.kernels import (ParamCache, motion_head_conv_chain, motion_head_params,
                                     rb_of_chain, rb_of_chain_params)
 from dffx_torch.ops.pool import adaptive_avg_pool_focus
@@ -165,11 +166,12 @@ class FlowNetwork(nn.Module):
 class E2ENetwork(nn.Module):
     """The end-to-end network (`End_to_End.py:14-17`): FlowNetwork alignment,
     then DFFNet on the aligned stack.  Keys under ``DFF_net.`` and
-    ``optical_flow_aggregation.``, as the reference state_dict."""
+    ``optical_flow_aggregation.``, as the reference state_dict.  ``packed``:
+    DFFNet's (``models/packed.py``)."""
 
-    def __init__(self):
+    def __init__(self, packed: bool = PACKED_DEFAULT):
         super().__init__()
-        self.DFF_net = DFFNet()
+        self.DFF_net = DFFNet(packed)
         self.optical_flow_aggregation = FlowNetwork()
 
     def forward(self, fs: torch.Tensor, focus_dists: torch.Tensor, fovs: torch.Tensor):

@@ -10,6 +10,14 @@ Resolution flow (focus axis N is never downsampled):
   hourglassup 32ch@1/8 -> confidence head -> D1 ->
   dres0 64ch@1/8 -> deconv_1 -> hourglass(32)@1/4 -> D2 ->
   deconv_2 -> hourglass(16)@1/2 -> D3 -> deconv_3 -> hourglass(8)@1/1 -> D4.
+
+With ``packed`` (the counterpart of ``dffx``'s ``Ctx.use_packed``, the graph
+its serving path runs) the same arithmetic is evaluated space-to-depth
+(``models/packed.py``): both EFDs read their input packed, 4x the channels on
+the half lattice (32ch@1/2, 64ch@1/4), and the whole full-resolution stage
+(deconv_3, the ends of hourglass(8), the residual add and classif3) runs as
+32- and 64-channel convs @1/2; the 1/2 and 1/4 stages are never packed.  The
+parameters and the state_dict are the same either way.
 """
 
 from __future__ import annotations
@@ -30,7 +38,10 @@ from dffx_torch.models.layers import (
     convbn_relu,
     init_module_params,
 )
+from dffx_torch.models.packed import (PACKED_DEFAULT, efd_params, pack, packed_efd, packed_stage,
+                                      stage_params, stage_sources)
 from dffx_torch.ops import avg_pool3d, softplus_argmax, upsample_bilinear
+from dffx_torch.ops.kernels import ParamCache
 
 
 class Hourglass(nn.Module):
@@ -50,14 +61,17 @@ class Hourglass(nn.Module):
         self.conv5 = DeconvBN3d(2 * c, 2 * c)
         self.conv6 = DeconvBN3d(2 * c, c)
 
-    def forward(self, x, presqu: Optional[torch.Tensor], postsqu: Optional[torch.Tensor]):
-        pre_1 = self.conv0(x)
-        out = self.conv1(pre_1)
+    def interior(self, out, presqu: Optional[torch.Tensor], postsqu: Optional[torch.Tensor]):
+        """conv2..conv5, from conv1's output to conv6's input: half the
+        hourglass's resolution and below."""
         pre = self.conv2(out)
         pre = torch.relu(pre + postsqu) if postsqu is not None else torch.relu(pre)
         out = self.conv4(self.conv3(pre))
-        out = torch.relu(self.conv5(out) + (presqu if presqu is not None else pre))
-        return self.conv6(out), pre_1
+        return torch.relu(self.conv5(out) + (presqu if presqu is not None else pre))
+
+    def forward(self, x, presqu: Optional[torch.Tensor], postsqu: Optional[torch.Tensor]):
+        pre_1 = self.conv0(x)
+        return self.conv6(self.interior(self.conv1(pre_1), presqu, postsqu)), pre_1
 
 
 def _dres(c_in, c_out, *, relu_last: bool) -> nn.Sequential:
@@ -109,13 +123,18 @@ class HourglassUp(nn.Module):
 
 
 class DFFNet(nn.Module):
-    """Focal stack -> (mid_out, pred1, pred2, pred3) depth heads."""
+    """Focal stack -> (mid_out, pred1, pred2, pred3) depth heads.  ``packed``:
+    both EFDs and the full-resolution stage run space-to-depth
+    (``models/packed.py``), an exact reparameterisation of the same weights."""
 
     #: the reference's MSRA init loop covers DFFNet's convs (init_module_params)
     msra_init = True
 
-    def __init__(self):
+    def __init__(self, packed: bool = PACKED_DEFAULT):
         super().__init__()
+        self.packed = packed
+        self._efd_params = (ParamCache(efd_params), ParamCache(efd_params))
+        self._tail_params = ParamCache(stage_params)
         self.FM_measure = FMModule()
         self.FM_conv1 = nn.Sequential(EFD(8, 16), SRD(16))
         self.FM_conv2 = nn.Sequential(EFD(16, 32), SRD(32))
@@ -134,6 +153,17 @@ class DFFNet(nn.Module):
         self.classif2 = nn.Sequential(Conv3d(16, 1, 1))
         self.classif3 = nn.Sequential(Conv3d(8, 1, 1))
 
+    def _down(self, level: int, x: torch.Tensor, x_packed: Optional[torch.Tensor] = None):
+        """``FM_conv1`` (level 0) or ``FM_conv2``: EFD, then SRD.  Packed, the
+        EFD reads ``pack(x)`` (``x_packed`` where the caller has it already)."""
+        stage = (self.FM_conv1, self.FM_conv2)[level]
+        if not self.packed:
+            return stage(x)
+        efd, srd = stage
+        xp = pack(x) if x_packed is None else x_packed
+        w_s2 = self._efd_params[level].or_packed(xp, efd.stride_conv[0].weight)
+        return srd(packed_efd(efd, xp, w_s2))
+
     def forward(self, fs: torch.Tensor, focus_dists: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         """fs ``(B, N, H, W, 3)`` in [-1, 1], H and W multiples of 32;
@@ -147,8 +177,9 @@ class DFFNet(nn.Module):
         x = fs.permute(0, 4, 1, 2, 3).contiguous()  # the one transpose: (B,3,N,H,W)
 
         fm = self.FM_measure(x)  # 8ch @ 1/1
-        half = self.FM_conv1(fm)
-        quad = self.FM_conv2(half)
+        fm_packed = pack(fm) if self.packed else None  # read by FM_conv1.0 and by dres4
+        half = self._down(0, fm, fm_packed)
+        quad = self._down(1, half)
         vol = self.SPP_module(quad)  # 32ch @ 1/8
 
         conf = self.confidence(vol)[:, 0]  # (B, N, h8, w8)
@@ -164,9 +195,14 @@ class DFFNet(nn.Module):
         out_in = out2 + out
         cost2 = self.classif2(out_in)[:, 0]
 
-        out2 = self.deconv_3(out_in)  # 8ch @ 1/1
-        o, _ = self.dres4(torch.cat([out2, fm], dim=1), pre, out)
-        cost3 = self.classif3(out2 + o)[:, 0]
+        if self.packed:
+            params = self._tail_params.or_packed(
+                out_in, *stage_sources(self.deconv_3, self.dres4, self.classif3[0]))
+            cost3 = packed_stage(self.dres4, out_in, fm_packed, pre, out, params)
+        else:
+            out2 = self.deconv_3(out_in)  # 8ch @ 1/1
+            o, _ = self.dres4(torch.cat([out2, fm], dim=1), pre, out)
+            cost3 = self.classif3(out2 + o)[:, 0]
 
         pred1 = softplus_argmax(upsample_bilinear(cost1, (height, width)), focus_dists)
         pred2 = softplus_argmax(upsample_bilinear(cost2, (height, width)), focus_dists)
@@ -177,9 +213,9 @@ class DFFNet(nn.Module):
 class Network(nn.Module):
     """The reference test-time wrapper (depth only): keys under ``DFF_net.``."""
 
-    def __init__(self):
+    def __init__(self, packed: bool = PACKED_DEFAULT):
         super().__init__()
-        self.DFF_net = DFFNet()
+        self.DFF_net = DFFNet(packed)
 
     def forward(self, fs, focus_dists):
         return self.DFF_net(fs, focus_dists)

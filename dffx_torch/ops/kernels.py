@@ -21,6 +21,11 @@ BN comes folded into fp32 ``(scale, shift)`` pairs (``bn_fused_affine``).
 Dispatch is by device.  A CPU tensor goes to the plain twin (``*_ref``), a
 CUDA tensor launches the kernel or raises; nothing falls back.  ``launches``
 counts kernel launches per wrapper, so a run can show it went through them.
+
+The kernels have no backward.  A wrapper that would have to carry gradients
+(a CUDA tensor, grad enabled, and the input or a weight or affine that requires
+grad: ``cuts_gradients``) raises instead of handing back a tensor whose graph
+ends at it; the twins, on the CPU, carry gradients as any torch op does.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ __all__ = [
     "motion_head_params",
     "ParamCache",
     "tensor_stamp",
+    "cuts_gradients",
     "launches",
     "reset_launches",
 ]
@@ -110,8 +116,21 @@ def _param(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return t.float().contiguous()
 
 
-def _cuda_args(x: torch.Tensor, c_ok=None):
-    """Check what only the kernel needs; returns (library, stream handle)."""
+def cuts_gradients(on_cuda: bool, grad_enabled: bool, requires_grad) -> bool:
+    """Whether a launch would cut an autograd graph without a word: the kernel
+    would run (a CUDA tensor), autograd is recording, and one of the tensors
+    it reads (``requires_grad``: a flag each) is part of a graph."""
+    return bool(on_cuda and grad_enabled and any(requires_grad))
+
+
+def _cuda_args(x: torch.Tensor, c_ok=None, *, name: str, reads=()):
+    """Check what only the kernel needs; returns (library, stream handle).
+    ``reads``: the weights and affines the launch reads beside x."""
+    if cuts_gradients(x.is_cuda, torch.is_grad_enabled(),
+                      (t.requires_grad for t in _tensors((x, *reads)))):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and its input or a weight requires "
+            "grad with grad enabled; call it under torch.no_grad() or inference_mode()")
     if not x.is_contiguous():
         raise ValueError("the CUDA kernels take contiguous (B, C, N, H, W) tensors")
     if c_ok is not None and x.shape[1] not in c_ok:
@@ -160,8 +179,10 @@ def _tensors(args):
 
 
 class ParamCache:
-    """The packed parameter buffer of one call site of a kernel, packed again
-    only when the device or one of the source tensors changes.
+    """What one call site derives from its weights (a kernel's packed
+    parameter buffer; ``models/packed.py``'s scattered conv weights), made
+    again only when the device, the activation dtype or one of the source
+    tensors changes.
 
     Eval weights are constants, and packing them (``fm_conv_params``,
     ``rb2d_params``, ``rb_of_chain_params``, ``motion_head_params``) costs the host about
@@ -183,11 +204,17 @@ class ParamCache:
         if x.device.type != "cuda":
             return None
         held = list(_tensors(args))
-        key = (x.device, *map(tensor_stamp, held))
+        key = (x.device, x.dtype, *map(tensor_stamp, held))
         if key != self._key:
             self._buf = self._pack(x, *args)
             self._key, self._held = key, held
         return self._buf
+
+    def or_packed(self, x: torch.Tensor, *args):
+        """As a call, for what is needed on the CPU too: nothing is kept
+        there, it is made on every call."""
+        buf = self(x, *args)
+        return self._pack(x, *args) if buf is None else buf
 
 
 def _use_params(params, x: torch.Tensor, tensors, layouts) -> torch.Tensor:
@@ -341,7 +368,7 @@ def fm_conv_bn_relu(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         return fm_conv_bn_relu_ref(x, w, scale, shift)
     if x.device.type != "cuda":
         raise _unsupported(x)
-    lib, stream = _cuda_args(x)
+    lib, stream = _cuda_args(x, name="fm_conv_bn_relu", reads=(w, scale, shift))
     b, _, n, h, wd = x.shape
     params = _use_params(params, x, *_fm_conv_plan(w, scale, shift))
     y = torch.empty((b, 8, n, h, wd), dtype=x.dtype, device=x.device)
@@ -384,7 +411,8 @@ def rb2d_residual(x: torch.Tensor, w1: torch.Tensor, aff1: Affine, w2: torch.Ten
         return rb2d_residual_ref(x, w1, aff1, w2, aff2)
     if x.device.type != "cuda":
         raise _unsupported(x)
-    lib, stream = _cuda_args(x, _KERNEL_CHANNELS)
+    lib, stream = _cuda_args(x, _KERNEL_CHANNELS, name="rb2d_residual",
+                             reads=(w1, aff1, w2, aff2))
     b, _, n, h, wd = x.shape
     params = _use_params(params, x, *_rb2d_plan(w1, aff1, w2, aff2))
     y = torch.empty_like(x)
@@ -420,7 +448,7 @@ def srd_attention_residual(f: torch.Tensor, wn: torch.Tensor, w1: torch.Tensor
         return srd_attention_residual_ref(f, wn, w1)
     if f.device.type != "cuda":
         raise _unsupported(f)
-    lib, stream = _cuda_args(f, _KERNEL_CHANNELS)
+    lib, stream = _cuda_args(f, _KERNEL_CHANNELS, name="srd_attention_residual", reads=(wn, w1))
     b, _, n, h, wd = f.shape
     wn, w1 = _param(wn, f), _param(w1, f)
     y = torch.empty_like(f)
@@ -480,7 +508,7 @@ def rb_of_chain(x: torch.Tensor, blocks: Sequence[OFBlock], *,
         raise _unsupported(x)
     if tuple(chans) not in _RB_OF_CHAINS:
         raise ValueError(f"kernel built for chains {_RB_OF_CHAINS}, got {tuple(chans)}")
-    lib, stream = _cuda_args(x)
+    lib, stream = _cuda_args(x, name="rb_of_chain", reads=blocks)
     b, _, n, h, wd = x.shape
     params = _use_params(params, x, *_rb_of_chain_plan(blocks))
     y = torch.empty((b, cin, n, h, wd), dtype=x.dtype, device=x.device)
@@ -553,7 +581,8 @@ def motion_head_conv_chain(x: torch.Tensor, w0: torch.Tensor, aff0: Affine,
         raise _unsupported(x)
     if (cin, c) not in _MOTION_HEAD_WIDTHS:
         raise ValueError(f"kernel built for (Cin, C) in {_MOTION_HEAD_WIDTHS}, got {(cin, c)}")
-    lib, stream = _cuda_args(x)
+    lib, stream = _cuda_args(x, name="motion_head_conv_chain",
+                             reads=(w0, aff0, w1, aff1, w2, aff2, w3, bias3))
     b, _, n, h, wd = x.shape
     params = _use_params(params, x,
                          *_motion_head_plan(w0, aff0, w1, aff1, w2, aff2, w3, bias3))

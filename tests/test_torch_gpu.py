@@ -347,3 +347,115 @@ def test_kept_parameters_follow_the_weights(cuda, rng):
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
     assert (got[3] - first[3]).abs().max().item() > 1e-3
+
+
+def _kernel_call(rng, name, dev):
+    """(wrapper, args, index of a weight among args) at a small shape."""
+    if name == "fm_conv_bn_relu":
+        return tk.fm_conv_bn_relu, [_act(rng, (1, 3, 2, 16, 24), dev),
+                                    _wt(rng, (8, 3, 1, 9, 9), dev), *_aff(rng, 8, dev)], 1
+    if name == "rb2d_residual":
+        return tk.rb2d_residual, list(_rb2d_args(rng, 1, 2, 16, 24, 8, dev)), 1
+    if name == "srd_attention_residual":
+        return tk.srd_attention_residual, [_act(rng, (1, 8, 2, 16, 24), dev),
+                                           _wt(rng, (8, 8, 3, 1, 1), dev),
+                                           _wt(rng, (8, 8, 1, 1, 1), dev)], 2
+    if name == "rb_of_chain":
+        x, blocks = _chain_args(rng, 1, 2, 16, 24, CHAINS[1], dev)
+        return (lambda x, ws: tk.rb_of_chain(x, [(blocks[0][0], *blocks[0][1:4], ws)]),
+                [x, blocks[0][4]], 1)
+    return tk.motion_head_conv_chain, list(_head_args(rng, 1, 2, 16, 24, dev)), 7
+
+
+@pytest.mark.parametrize("name", sorted(E2E_LAUNCHES))
+def test_wrappers_refuse_to_cut_a_gradient(cuda, rng, name):
+    """The kernels have no backward: with grad enabled, a weight, an affine or
+    the input that requires grad makes the wrapper raise, naming itself; it
+    does not switch to its twin.  Under ``no_grad`` it launches."""
+    fn, args, wi = _kernel_call(rng, name, cuda)
+    fn(*args)  # nothing requires grad: it launches with grad enabled
+    assert tk.launches[name] == 1
+    for count, i in ((1, wi), (2, 0)):
+        args[i].requires_grad_()
+        with pytest.raises(RuntimeError, match=f"{name}: the CUDA kernel has no backward"):
+            fn(*args)
+        assert tk.launches[name] == count  # it raised before the launch
+        with torch.no_grad():
+            out = fn(*args)
+        assert not out.requires_grad and tk.launches[name] == count + 1
+        args[i].requires_grad_(False)
+
+
+def test_module_forward_with_gradients_raises_on_the_card(cuda, rng):
+    """A module's parameters require grad by default: outside ``no_grad`` a CUDA
+    forward raises at the first kernel where it once returned heads whose
+    graph stopped there."""
+    from dffx_torch.eval import load_params_auto
+
+    net = load_params_auto(0, device=cuda)
+    fs = torch.from_numpy(rng.uniform(-1, 1, (1, 2, 32, 32, 3)).astype(np.float32)).to(cuda)
+    fd = torch.from_numpy(np.linspace(0.1, 1.5, 2, dtype=np.float32)[None]).to(cuda)
+    with pytest.raises(RuntimeError, match="fm_conv_bn_relu: the CUDA kernel has no backward"):
+        net(fs, fd)
+    with torch.no_grad():
+        assert all(torch.isfinite(t).all() for t in net(fs, fd))
+
+
+@pytest.mark.parametrize("e2e", [False, True], ids=["dffnet", "e2e"])
+def test_packed_forward_on_the_card_matches_unpacked(cuda, rng, e2e):
+    """fp32 within 1e-4 on every head; bf16 packed against fp32 unpacked under a
+    stated bound: 15 % of the focus range (a whole bf16 forward is some forty
+    convs deep; on the card at 10 x 384 x 384 the unpacked bf16 forward is up
+    to 7 % of the range from its fp32, ``chip_smoke.py``'s ``forward_vs_cpu``)."""
+    from dffx_torch.eval import load_params_auto
+
+    h, w = (64, 160) if e2e else (64, 96)
+    fs = torch.from_numpy(rng.uniform(-1, 1, (1, 10, h, w, 3)).astype(np.float32)).to(cuda)
+    fd = torch.from_numpy(np.linspace(0.1, 1.5, 10, dtype=np.float32)[None]).to(cuda)
+    extra = (torch.from_numpy(np.linspace(1.0, 1.05, 10, dtype=np.float32)[None]).to(cuda),
+             ) if e2e else ()
+    plain, packed = (load_params_auto(0, device=cuda, e2e=e2e, packed=p) for p in (False, True))
+    with torch.inference_mode():
+        ref = plain(fs, fd, *extra)
+        tk.reset_launches()
+        got = packed(fs, fd, *extra)
+        assert tk.launches == (E2E_LAUNCHES if e2e else
+                               {**dict.fromkeys(E2E_LAUNCHES, 0),
+                                **dict.fromkeys(DFFNET_KERNELS, 1)})
+        half = packed(fs.bfloat16(), fd, *extra)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=1e-4, rtol=0)
+    for g, r in zip(half[:4], ref[:4]):
+        assert g.dtype == torch.bfloat16
+        assert (g.float() - r).abs().max().item() <= 0.15 * (1.5 - 0.1)
+
+
+def test_kept_packed_weights_follow_their_sources(cuda, rng):
+    """``DFFNet`` keeps its packed weights per device and dtype; a source
+    weight written in place, or a state dict loaded, reaches the next forward."""
+    from dffx_torch.eval import load_params_auto
+
+    fs = torch.from_numpy(rng.uniform(-1, 1, (1, 3, 64, 96, 3)).astype(np.float32)).to(cuda)
+    fd = torch.from_numpy(np.linspace(0.1, 1.5, 3, dtype=np.float32)[None]).to(cuda)
+    packed, plain = (load_params_auto(0, device=cuda, packed=p) for p in (True, False))
+    with torch.inference_mode():
+        first = packed(fs, fd)
+        kept = packed.DFF_net._tail_params._buf
+        packed(fs, fd)
+        assert packed.DFF_net._tail_params._buf is kept  # made once
+        packed(fs.bfloat16(), fd)
+        assert packed.DFF_net._tail_params._buf[0].dtype == torch.bfloat16
+    with torch.no_grad():
+        for net in (packed, plain):
+            net.DFF_net.deconv_3[0].weight.mul_(1.5)
+            net.DFF_net.FM_conv1[0].stride_conv[0].weight.mul_(0.5)
+    with torch.inference_mode():
+        got, want = packed(fs, fd), plain(fs, fd)
+    assert (got[3] - first[3]).abs().max().item() > 1e-3
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+    other = load_params_auto(1, device=cuda, packed=False)
+    packed.load_state_dict(other.state_dict())
+    with torch.inference_mode():
+        for g, w in zip(packed(fs, fd), other(fs, fd)):
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=0)

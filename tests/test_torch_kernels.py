@@ -331,7 +331,7 @@ def test_param_cache_packs_once_until_a_source_changes():
         return torch.cat([w.reshape(-1), *aff])
 
     cache = tk.ParamCache(pack)
-    on = lambda i: types.SimpleNamespace(device=torch.device("cuda", i))
+    on = lambda i: types.SimpleNamespace(device=torch.device("cuda", i), dtype=torch.float32)
     w, aff = torch.ones(2, 3), (torch.zeros(2), torch.ones(2))
     first = cache(on(0), w, aff)
     assert cache(on(0), w, aff) is first and len(packs) == 1
@@ -346,6 +346,34 @@ def test_param_cache_packs_once_until_a_source_changes():
     cache(on(1), w, aff)
     assert len(packs) == 5
     assert cache(torch.zeros(1), w, aff) is None and len(packs) == 5
+    half = types.SimpleNamespace(device=torch.device("cuda", 1), dtype=torch.bfloat16)
+    cache(half, w, aff)                         # another activation dtype
+    assert len(packs) == 6 and cache(half, w, aff) is cache(half, w, aff)
+    # or_packed: what is needed on the CPU too is made there on every call
+    assert cache.or_packed(half, w, aff) is cache(half, w, aff) and len(packs) == 6
+    made = cache.or_packed(torch.zeros(1), w, aff)
+    assert made is not None and made is not cache.or_packed(torch.zeros(1), w, aff)
+    assert len(packs) == 8
+
+
+@pytest.mark.parametrize("on_cuda", [False, True])
+@pytest.mark.parametrize("grad_enabled", [False, True])
+@pytest.mark.parametrize("requires", [(), (False, False), (False, True), (True,)])
+def test_cuts_gradients_truth_table(on_cuda, grad_enabled, requires):
+    """A launch would cut a graph only where the kernel runs (CUDA), autograd
+    records, and a tensor it reads requires grad; the wrappers raise on it."""
+    want = on_cuda and grad_enabled and any(requires)
+    assert tk.cuts_gradients(on_cuda, grad_enabled, iter(requires)) is want
+
+
+def test_cpu_twins_carry_gradients_and_never_raise(rng):
+    """The guard is for the card: on the CPU a wrapper runs its twin, which
+    is differentiable, whatever requires grad."""
+    x, w1, bn1, w2, bn2 = _rb_inputs(rng, 1, 2, 5, 7, 8)
+    w1t = _w(w1).requires_grad_()
+    y = tk.rb2d_residual(_t(x).requires_grad_(), w1t, _taff(bn1), _w(w2), _taff(bn2))
+    y.sum().backward()
+    assert w1t.grad is not None and w1t.grad.abs().sum() > 0
 
 
 def test_fused_affine_is_kept_until_the_statistics_change():
@@ -397,7 +425,7 @@ def test_rb2d_params_are_packed_once_and_checked(rng):
         return tk.rb2d_params(_t(x), *a)
 
     cache = tk.ParamCache(pack)
-    on_card = types.SimpleNamespace(device=torch.device("cuda", 0))
+    on_card = types.SimpleNamespace(device=torch.device("cuda", 0), dtype=torch.float32)
     good = cache(on_card, *args)
     assert cache(on_card, *args) is good and len(packs) == 1
     assert good.numel() == 2 * (9 * 64 + 16)
