@@ -1,7 +1,8 @@
 """dffx_torch — the DFFNet and end-to-end (FlowNetwork alignment + DFFNet)
-eval forwards in PyTorch, with hand-written CUDA kernels for Hopper (H100)
-on the full-resolution focus-measure chain, the alignment feature pyramid and
-the full-resolution motion head.
+networks in PyTorch: eval forwards with hand-written CUDA kernels for Hopper
+(H100) on the full-resolution focus-measure chain, the alignment feature
+pyramid and the full-resolution motion head, and the train step
+(``dffx_torch.train``) on stock ops.
 
 Layout inside the port is torch's ``(B, C, N, H, W)``; the public forward
 keeps the JAX package's ``(B, N, H, W, 3)`` focal stack and ``(B, N)`` focus

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Timings of dffx_torch's CUDA kernels and forwards on one NVIDIA GPU.
 
-    python3 dffx_torch/bench.py [--root TREE] [--what kernels,mma,stages,serving]
-                                [--graph unpacked,packed,...] [--cudnn-benchmark]
+    python3 dffx_torch/bench.py [--root TREE] [--what kernels,mma,stages,serving,train]
+                                [--graph unpacked,packed,...] [--cudnn-benchmark] [--tf32]
 
 Every line it prints is one JSON object with the card's name and power limit
 (``nvidia-smi --query-gpu=name,power.limit``).  ``--root`` names the tree whose
@@ -26,6 +26,9 @@ tree before its redesign, one packed buffer now).
                 time by kernel name and the device's busy share, for it and
                 for DFFNet alone at 10 x 384 x 384 (batch 1 fp32, batch 4 bf16);
 * ``serving``   ``TimedForward`` at the two serving shapes, fp32 and bf16;
+* ``train``     ``torch.profiler`` over train steps at b4 10 x 224 x 224 (DFFNet
+                fp32, bf16 and remat; the end-to-end network fp32): device
+                time by kernel name and the device's busy share (this tree only);
 * ``pieces``    DFFNet's full-resolution stage and its neighbours alone, at the
                 shapes the two serving paths give them: each 16 -> 8 deconv as
                 cuDNN runs it, in ``channels_last_3d`` and as a packed conv,
@@ -44,6 +47,7 @@ path takes ``unpacked`` only.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import inspect
 import json
 import statistics
@@ -90,8 +94,9 @@ def make_net(graph: str, dev, e2e: bool):
         raise SystemExit(f"bench: this tree has no packed path, so no graph {graph!r}")
     net = load_params_auto(0, device=dev, e2e=e2e, **kw)
     dff = net.DFF_net
-    if graph == "tail":  # the EFDs as the unpacked graph runs them
-        dff._down = lambda level, x, x_packed=None: (dff.FM_conv1, dff.FM_conv2)[level](x)
+    if graph == "tail":  # the EFDs as the unpacked graph runs them (both trees' names)
+        dff._down = dff._packed_down = (
+            lambda level, x, x_packed=None: (dff.FM_conv1, dff.FM_conv2)[level](x))
     elif graph == "deconvs":
         for deconv in (dff.deconv_3[0], dff.dres4.conv6[0]):
             deconv.forward = lowered_deconv(deconv)
@@ -393,14 +398,43 @@ def bench_stages(np, torch, tk, dev, smi, graph):
               **profile_forwards(torch, lambda: dff(fs, fdb), forwards=6)})
 
 
-def profile_forwards(torch, forward, forwards: int = 3) -> dict:
-    """``torch.profiler`` over a few forwards: wall time, the device's busy
-    share of it, and the device time of the top kernels, per forward."""
+def bench_train(np, torch, dev, smi):
+    """The train step at the recipes' size (b4 10 x 224 x 224): device time by
+    kernel name and the device's busy share, for DFFNet in fp32, bf16 and with
+    remat and for the end-to-end network in fp32."""
+    from dffx_torch.eval import load_params_auto
+    from dffx_torch.train import LossConfig, create_train_state, make_train_step
+
+    rng = np.random.default_rng(2)
+    b, n, h, w = 4, 10, 224, 224
+    for e2e, dtype, remat in ((False, torch.float32, False), (False, torch.bfloat16, False),
+                              (False, torch.float32, True), (True, torch.float32, False)):
+        batch = {"fs": rng.uniform(-1, 1, (b, n, h, w, 3)).astype(np.float32),
+                 "depth": rng.uniform(0.1, 1.5, (b, h, w)).astype(np.float32),
+                 "focus_dists": np.tile(np.linspace(0.1, 1.5, n, dtype=np.float32), (b, 1)),
+                 "mask": rng.random((b, h, w)) > 0.2,
+                 "fovs": np.tile(np.linspace(1.0, 1.03, n, dtype=np.float32), (b, 1))}
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        state = create_train_state(load_params_auto(0, device=dev, e2e=e2e), 1e-3)
+        step = make_train_step(1e-3, LossConfig(), e2e=e2e, compute_dtype=dtype, remat=remat)
+        for _ in range(2):
+            step(state, batch)
+        emit({"what": "train_profile", "device": smi, "model": "e2e" if e2e else "dffnet",
+              "dtype": str(dtype).split(".")[1], "remat": remat, "batch": b, "shape": [n, h, w],
+              "cudnn_benchmark": torch.backends.cudnn.benchmark,
+              "tf32": torch.backends.cudnn.allow_tf32,
+              **profile_forwards(torch, lambda: step(state, batch), grad=True)})
+
+
+def profile_forwards(torch, forward, forwards: int = 3, grad: bool = False) -> dict:
+    """``torch.profiler`` over a few forwards (or, with ``grad``, train
+    steps): wall time, the device's busy share of it, and the device time of
+    the top kernels, per forward."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
-                                                     ProfilerActivity.CUDA]) as prof:
+    mode = contextlib.nullcontext() if grad else torch.inference_mode()
+    with mode, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
         for _ in range(forwards):
@@ -526,7 +560,11 @@ def main() -> int:
     ap.add_argument("--graph", default="unpacked,packed",
                     help=f"stages and serving: the graphs to run, in turns, of {GRAPHS}")
     ap.add_argument("--cudnn-benchmark", action="store_true",
-                    help="pieces, stages and serving under torch.backends.cudnn.benchmark = True")
+                    help="pieces, stages, serving and train under "
+                         "torch.backends.cudnn.benchmark = True")
+    ap.add_argument("--tf32", action="store_true",
+                    help="TF32 for cuDNN's fp32 convs and cuBLAS's fp32 matmuls (PyTorch's "
+                         "default for cuDNN); without it both run in full fp32")
     ns = ap.parse_args()
     graphs = ns.graph.split(",")
     if set(graphs) - set(GRAPHS):
@@ -543,8 +581,8 @@ def main() -> int:
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = ns.tf32
+    torch.backends.cuda.matmul.allow_tf32 = ns.tf32
     dev = torch.device("cuda", 0)
     _, seconds, log = _build.build()
     lib = _build.library()
@@ -563,6 +601,8 @@ def main() -> int:
     torch.backends.cudnn.benchmark = ns.cudnn_benchmark
     if "pieces" in what:
         bench_pieces(np, torch, dev, smi, ns.reps)
+    if "train" in what:
+        bench_train(np, torch, dev, smi)
     for graph in graphs:
         if "stages" in what:
             bench_stages(np, torch, tk, dev, smi, graph)

@@ -1,5 +1,5 @@
-"""dffx_torch.models — DFFNet and the end-to-end network (eval) as
-``nn.Module``s keyed like the reference."""
+"""dffx_torch.models — DFFNet and the end-to-end network as ``nn.Module``s
+keyed like the reference."""
 
 from dffx_torch.models.alignnet import (
     E2ENetwork,

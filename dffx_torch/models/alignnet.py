@@ -1,4 +1,4 @@
-"""FlowNetwork alignment and the end-to-end (alignment + depth) network, eval mode.
+"""FlowNetwork alignment and the end-to-end (alignment + depth) network.
 
 The ``nn.Module`` counterpart of ``dffx/models/alignnet.py`` (reference
 `End_to_End/End_to_End.py:8-145`): a per-slice feature pyramid, a
@@ -12,12 +12,17 @@ per forward: the full-resolution pair and the second block of each strided
 level), and the full-resolution conv3 motion head through
 ``motion_head_conv_chain``.  The strided first blocks of the lower levels and
 the two lower-resolution heads run on stock ops, as the JAX package leaves
-them to XLA.  Activations are ``(B, C, N, H, W)`` inside; the public forward
-keeps the JAX layout.
+them to XLA.  In training mode (``.train()``) every level and head runs on
+stock ops, as ``dffx`` under ``Ctx.train``, and the gradient reaches the
+motion through the warp's interpolation matrices; ``remat`` recomputes the
+pyramid levels and the warp + head blocks in the backward
+(``layers.ckpt_stage``).  Activations are ``(B, C, N, H, W)`` inside; the
+public forward keeps the JAX layout.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import numpy as np
@@ -25,7 +30,7 @@ import torch
 from torch import nn
 
 from dffx_torch.models.dffnet import DFFNet
-from dffx_torch.models.layers import Conv3d, ConvBN3d, init_module_params
+from dffx_torch.models.layers import Conv3d, ConvBN3d, ckpt_stage, init_module_params
 from dffx_torch.models.packed import PACKED_DEFAULT
 from dffx_torch.ops.kernels import (ParamCache, motion_head_conv_chain, motion_head_params,
                                     rb_of_chain, rb_of_chain_params)
@@ -63,14 +68,17 @@ class ResnetBlock2dOF(nn.Module):
 
 class OFLevel(nn.Sequential):
     """One pyramid level (``OF_feature``, ``OF_feature1``, ``OF_feature2``): two blocks.
-    Its stride-1 blocks run as one ``rb_of_chain``; a strided first block
-    runs on stock ops before it."""
+    In eval mode its stride-1 blocks run as one ``rb_of_chain``; a strided
+    first block runs on stock ops before it.  In training mode both blocks
+    run on stock ops."""
 
     def __init__(self, cin, cout, stride):
         super().__init__(ResnetBlock2dOF(cin, cout, stride), ResnetBlock2dOF(cout, cout))
         self._chain_params = ParamCache(rb_of_chain_params)
 
     def forward(self, x):
+        if self.training:
+            return super().forward(x)
         first, second = self
         if first.stride == 1:
             blocks = [first.chain_args(), second.chain_args()]
@@ -83,8 +91,9 @@ class MotionHead(nn.Sequential):
     """Motion-regression head convN (`End_to_End.py:33-61`): three (1,3,3)
     convbn + ReLU and a biased (1,3,3) conv to 3 channels, then
     ``AdaptiveAvgPool3d((10, 1, 1))``.  ``fused`` runs the chain before the
-    pooling as ``motion_head_conv_chain`` (the full-resolution conv3 head);
-    the others run on stock ops, as in the JAX package."""
+    pooling as ``motion_head_conv_chain`` in eval mode (the full-resolution
+    conv3 head); the others, and every head in training mode, run on stock
+    ops, as in the JAX package."""
 
     def __init__(self, c, *, fused=False):
         super().__init__(
@@ -97,7 +106,7 @@ class MotionHead(nn.Sequential):
 
     def forward(self, volume):
         """volume ``(B, c + 2, N, H, W)`` -> motion ``(B, N_MOTION, 3)``."""
-        if self.fused:
+        if self.fused and not self.training:
             args = (self[0][0].weight, self[0][1].fused_affine(),
                     self[2][0].weight, self[2][1].fused_affine(),
                     self[4][0].weight, self[4][1].fused_affine(), self[6].weight, self[6].bias)
@@ -134,12 +143,13 @@ class FlowNetwork(nn.Module):
         d = head(_motion_volume(feat_w, flow_cf(fx, fy, feat.dtype))).float()
         return d * d.new_tensor([ALPHA_DAMPING, 1.0, 1.0])
 
-    def forward(self, fs: torch.Tensor, fovs: torch.Tensor
+    def forward(self, fs: torch.Tensor, fovs: torch.Tensor, *, remat: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """fs ``(B, N, H, W, 3)`` with N = 10, fovs ``(B, N)`` relative
         field-of-view factors.  Returns ``(warped, motion)``: the aligned
         stack ``(B, N, H, W, 3)`` in fs.dtype and the accumulated fp32
-        ``(B, N, 3)`` motion (alpha, beta, gamma)."""
+        ``(B, N, 3)`` motion (alpha, beta, gamma).  ``remat``: recompute the
+        levels and the warp + head blocks in the backward."""
         if fs.dim() != 5 or fs.shape[-1] != 3:
             raise ValueError(f"fs must be (B, N, H, W, 3), got {tuple(fs.shape)}")
         b, n = fs.shape[:2]
@@ -148,17 +158,18 @@ class FlowNetwork(nn.Module):
                              f"N must be {N_MOTION}, got {n}")
         if tuple(fovs.shape) != (b, n):
             raise ValueError(f"fovs must be (B, N) = {(b, n)}, got {tuple(fovs.shape)}")
+        stage = functools.partial(ckpt_stage, remat)
         x = fs.permute(0, 4, 1, 2, 3).contiguous()  # (B, 3, N, H, W)
-        fe1 = self.OF_feature(x)      # 8ch @ 1/1
-        fe2 = self.OF_feature1(fe1)   # 16ch @ 1/2
-        fe3 = self.OF_feature2(fe2)   # 32ch @ 1/4
+        fe1 = stage(self.OF_feature, x)      # 8ch @ 1/1
+        fe2 = stage(self.OF_feature1, fe1)   # 16ch @ 1/2
+        fe3 = stage(self.OF_feature2, fe2)   # 32ch @ 1/4
 
         fovs = fovs.float()
         zeros = torch.zeros_like(fovs)
-        motion = self._warp_head(self.conv1, fe3, fovs, zeros, zeros)
+        motion = stage(functools.partial(self._warp_head, self.conv1), fe3, fovs, zeros, zeros)
         for head, feat in ((self.conv2, fe2), (self.conv3, fe1)):
-            motion = motion + self._warp_head(head, feat, motion[..., 0] + fovs,
-                                              motion[..., 1], motion[..., 2])
+            motion = motion + stage(functools.partial(self._warp_head, head), feat,
+                                    motion[..., 0] + fovs, motion[..., 1], motion[..., 2])
         warped, _, _ = warp_cf(x, motion[..., 0] + fovs, motion[..., 1], motion[..., 2])
         return warped.permute(0, 2, 3, 4, 1), motion
 
@@ -174,12 +185,13 @@ class E2ENetwork(nn.Module):
         self.DFF_net = DFFNet(packed)
         self.optical_flow_aggregation = FlowNetwork()
 
-    def forward(self, fs: torch.Tensor, focus_dists: torch.Tensor, fovs: torch.Tensor):
+    def forward(self, fs: torch.Tensor, focus_dists: torch.Tensor, fovs: torch.Tensor, *,
+                remat: bool = False):
         """fs ``(B, 10, H, W, 3)`` with H, W multiples of 32; focus_dists and
         fovs ``(B, 10)``.  Returns ``(mid_out, pred1, pred2, pred3, warped)``:
         four ``(B, H, W)`` depth maps and the aligned stack."""
-        warped, _ = self.optical_flow_aggregation(fs, fovs)
-        return (*self.DFF_net(warped, focus_dists), warped)
+        warped, _ = self.optical_flow_aggregation(fs, fovs, remat=remat)
+        return (*self.DFF_net(warped, focus_dists, remat=remat), warped)
 
 
 def e2e_init_params(seed: int = 0) -> Dict[str, np.ndarray]:

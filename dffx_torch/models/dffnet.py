@@ -1,5 +1,5 @@
 """DFFNet — focus-measure pyramid, multi-scale cost aggregation, stacked
-refinement hourglasses and four softplus soft-argmax depth heads, eval mode.
+refinement hourglasses and four softplus soft-argmax depth heads.
 
 The ``nn.Module`` counterpart of ``dffx/models/dffnet.py`` (reference
 `Depth_Estimation_Test/Depth_Estimation_Network.py:15-127`); ``Network`` wraps
@@ -17,11 +17,15 @@ its serving path runs) the same arithmetic is evaluated space-to-depth
 the half lattice (32ch@1/2, 64ch@1/4), and the whole full-resolution stage
 (deconv_3, the ends of hourglass(8), the residual add and classif3) runs as
 32- and 64-channel convs @1/2; the 1/2 and 1/4 stages are never packed.  The
-parameters and the state_dict are the same either way.
+parameters and the state_dict are the same either way.  ``packed`` is an eval
+graph: in training mode (``.train()``) the forward runs unpacked, on stock
+ops, as ``dffx`` does under ``Ctx.train``; ``remat`` then recomputes the
+stages ``dffnet_apply`` checkpoints (``layers.ckpt_stage``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -35,6 +39,7 @@ from dffx_torch.models.layers import (
     ConvBN3d,
     DeconvBN3d,
     FMModule,
+    ckpt_stage,
     convbn_relu,
     init_module_params,
 )
@@ -124,7 +129,7 @@ class HourglassUp(nn.Module):
 
 class DFFNet(nn.Module):
     """Focal stack -> (mid_out, pred1, pred2, pred3) depth heads.  ``packed``:
-    both EFDs and the full-resolution stage run space-to-depth
+    in eval mode both EFDs and the full-resolution stage run space-to-depth
     (``models/packed.py``), an exact reparameterisation of the same weights."""
 
     #: the reference's MSRA init loop covers DFFNet's convs (init_module_params)
@@ -153,60 +158,76 @@ class DFFNet(nn.Module):
         self.classif2 = nn.Sequential(Conv3d(16, 1, 1))
         self.classif3 = nn.Sequential(Conv3d(8, 1, 1))
 
-    def _down(self, level: int, x: torch.Tensor, x_packed: Optional[torch.Tensor] = None):
-        """``FM_conv1`` (level 0) or ``FM_conv2``: EFD, then SRD.  Packed, the
-        EFD reads ``pack(x)`` (``x_packed`` where the caller has it already)."""
-        stage = (self.FM_conv1, self.FM_conv2)[level]
-        if not self.packed:
-            return stage(x)
-        efd, srd = stage
+    def _packed_down(self, level: int, x: torch.Tensor,
+                     x_packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``FM_conv1`` (level 0) or ``FM_conv2`` packed: the EFD reads
+        ``pack(x)`` (``x_packed`` where the caller has it already), then the SRD."""
+        efd, srd = (self.FM_conv1, self.FM_conv2)[level]
         xp = pack(x) if x_packed is None else x_packed
         w_s2 = self._efd_params[level].or_packed(xp, efd.stride_conv[0].weight)
         return srd(packed_efd(efd, xp, w_s2))
 
-    def forward(self, fs: torch.Tensor, focus_dists: torch.Tensor
+    def _tail(self, out_in, fm, pre, out):
+        """deconv_3 -> dres4 -> classif3, unpacked: the full-resolution cost."""
+        out2 = self.deconv_3(out_in)  # 8ch @ 1/1
+        o, _ = self.dres4(torch.cat([out2, fm], dim=1), pre, out)
+        return self.classif3(out2 + o)[:, 0]
+
+    def forward(self, fs: torch.Tensor, focus_dists: torch.Tensor, *, remat: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         """fs ``(B, N, H, W, 3)`` in [-1, 1], H and W multiples of 32;
         focus_dists ``(B, N)``.  Returns four ``(B, H, W)`` depth maps;
-        ``pred3`` is the full-resolution head used for evaluation."""
+        ``pred3`` is the full-resolution head used for evaluation.  ``remat``:
+        recompute each stage's activations in the backward
+        (``layers.ckpt_stage``)."""
         if fs.dim() != 5 or fs.shape[-1] != 3:
             raise ValueError(f"fs must be (B, N, H, W, 3), got {tuple(fs.shape)}")
         height, width = fs.shape[2], fs.shape[3]
         if height % 32 or width % 32:
             raise ValueError(f"H and W must be multiples of 32, got {height}x{width}")
         x = fs.permute(0, 4, 1, 2, 3).contiguous()  # the one transpose: (B,3,N,H,W)
+        packed = self.packed and not self.training
+        stage = functools.partial(ckpt_stage, remat)
 
-        fm = self.FM_measure(x)  # 8ch @ 1/1
-        fm_packed = pack(fm) if self.packed else None  # read by FM_conv1.0 and by dres4
-        half = self._down(0, fm, fm_packed)
-        quad = self._down(1, half)
-        vol = self.SPP_module(quad)  # 32ch @ 1/8
+        def head(cost, fd):
+            return softplus_argmax(upsample_bilinear(cost, (height, width)), fd)
 
-        conf = self.confidence(vol)[:, 0]  # (B, N, h8, w8)
-        mid_out = softplus_argmax(upsample_bilinear(conf, (height, width)), focus_dists)
+        fm = stage(self.FM_measure, x)  # 8ch @ 1/1
+        if packed:
+            fm_packed = pack(fm)  # read by FM_conv1.0 and by dres4
+            half = self._packed_down(0, fm, fm_packed)
+            quad = self._packed_down(1, half)
+        else:
+            half = stage(self.FM_conv1, fm)
+            quad = stage(self.FM_conv2, half)
+        vol = stage(self.SPP_module, quad)  # 32ch @ 1/8
 
-        x = self.deconv_1(self.dres0(vol))  # 32ch @ 1/4
-        out, pre = self.dres2(torch.cat([x, quad], dim=1), None, None)
+        conf = stage(lambda v: self.confidence(v)[:, 0], vol)  # (B, N, h8, w8)
+        mid_out = stage(head, conf, focus_dists)
+
+        x = stage(lambda v: self.deconv_1(self.dres0(v)), vol)  # 32ch @ 1/4
+        out, pre = stage(lambda x, q: self.dres2(torch.cat([x, q], dim=1), None, None), x, quad)
         out_in = x + out
         cost1 = self.classif1(out_in)[:, 0]
 
-        out2 = self.deconv_2(out_in)  # 16ch @ 1/2
-        out, pre = self.dres3(torch.cat([out2, half], dim=1), pre, out)
+        def dres3(out_in, half, pre, out):
+            out2 = self.deconv_2(out_in)  # 16ch @ 1/2
+            return (out2, *self.dres3(torch.cat([out2, half], dim=1), pre, out))
+
+        out2, out, pre = stage(dres3, out_in, half, pre, out)
         out_in = out2 + out
         cost2 = self.classif2(out_in)[:, 0]
 
-        if self.packed:
+        if packed:
             params = self._tail_params.or_packed(
                 out_in, *stage_sources(self.deconv_3, self.dres4, self.classif3[0]))
             cost3 = packed_stage(self.dres4, out_in, fm_packed, pre, out, params)
         else:
-            out2 = self.deconv_3(out_in)  # 8ch @ 1/1
-            o, _ = self.dres4(torch.cat([out2, fm], dim=1), pre, out)
-            cost3 = self.classif3(out2 + o)[:, 0]
+            cost3 = stage(self._tail, out_in, fm, pre, out)
 
-        pred1 = softplus_argmax(upsample_bilinear(cost1, (height, width)), focus_dists)
-        pred2 = softplus_argmax(upsample_bilinear(cost2, (height, width)), focus_dists)
-        pred3 = softplus_argmax(cost3, focus_dists)
+        pred1 = stage(head, cost1, focus_dists)
+        pred2 = stage(head, cost2, focus_dists)
+        pred3 = stage(softplus_argmax, cost3, focus_dists)
         return mid_out, pred1, pred2, pred3
 
 
@@ -217,8 +238,8 @@ class Network(nn.Module):
         super().__init__()
         self.DFF_net = DFFNet(packed)
 
-    def forward(self, fs, focus_dists):
-        return self.DFF_net(fs, focus_dists)
+    def forward(self, fs, focus_dists, *, remat: bool = False):
+        return self.DFF_net(fs, focus_dists, remat=remat)
 
 
 def init_params(seed: int = 0) -> Dict[str, np.ndarray]:

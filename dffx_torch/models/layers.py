@@ -1,12 +1,15 @@
-"""Building blocks of DFFNet and FlowNetwork as ``nn.Module``s, eval mode only.
+"""Building blocks of DFFNet and FlowNetwork as ``nn.Module``s.
 
 Submodule names and indices follow the reference constructors
 (`Depth_Estimation_Test/Depth_Estimation_Network.py`,
 `End_to_End/End_to_End.py`), so every
 ``state_dict`` key equals the reference key and the JAX package's param key.
 Parameters stay fp32; convs run in the activation dtype (weights are cast at
-use, as ``dffx`` casts its kernels), and BN always normalises with the running
-statistics.  Activations are ``(B, C, N, H, W)``.
+use, as ``dffx`` casts its kernels).  In eval mode BN normalises with the
+running statistics and the full-resolution chains run as the CUDA kernels; in
+training mode (``.train()``) BN takes batch statistics and updates the running
+ones, and every module runs on stock ops, as ``dffx`` under ``Ctx.train``
+(the kernels have no backward).  Activations are ``(B, C, N, H, W)``.
 
 ``init_module_params(Network(), seed)`` reproduces
 ``dffx.models.init_params(network_specs(), seed)`` bit for bit (and the same
@@ -18,14 +21,17 @@ order, in the JAX package's DHWIO weight layout (load it with
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Dict
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from dffx_torch.ops import batch_norm, bn_fused_affine, conv3d, deconv3d
+from dffx_torch.ops import batch_norm, batch_norm_train, bn_fused_affine, conv3d, deconv3d
 from dffx_torch.ops.kernels import (ParamCache, fm_conv_bn_relu, fm_conv_params, rb2d_params,
                                     rb2d_residual, srd_attention_residual, tensor_stamp)
 
@@ -54,25 +60,69 @@ class ConvTranspose3d(nn.ConvTranspose3d):
         return deconv3d(x, self.weight)
 
 
-class BatchNorm3d(nn.BatchNorm3d):
-    """Eval-mode BatchNorm3d with the JAX package's numerics."""
+#: set while ``torch.utils.checkpoint`` recomputes a stage in the backward
+_RECOMPUTING = contextvars.ContextVar("dffx_torch_recomputing", default=False)
 
-    def _eval_only(self):
-        if self.training:
-            raise RuntimeError("dffx_torch modules are eval-only: call .eval() first")
+
+@contextlib.contextmanager
+def _recomputing():
+    token = _RECOMPUTING.set(True)
+    try:
+        yield
+    finally:
+        _RECOMPUTING.reset(token)
+
+
+def _checkpoint_contexts():
+    """``context_fn`` of ``ckpt_stage``: nothing around the forward, the
+    recompute flag around the recomputation."""
+    return contextlib.nullcontext(), _recomputing()
+
+
+def ckpt_stage(remat: bool, fn, *args):
+    """``fn(*args)``; with ``remat`` (and autograd recording) under
+    ``torch.utils.checkpoint``, so that the stage's internal activations are
+    recomputed in the backward instead of kept (``dffx/models/layers.py::
+    ckpt_stage``).  The recomputation updates no BN running statistic: the
+    forward already did (``BatchNorm3d.forward``)."""
+    if not (remat and torch.is_grad_enabled()):
+        return fn(*args)
+    # no op of the model draws random numbers: no RNG state to keep
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=_checkpoint_contexts)
+
+
+class BatchNorm3d(nn.BatchNorm3d):
+    """BatchNorm3d with the JAX package's numerics (``dffx_torch.ops.norm``).
+
+    In training mode it normalises with the batch statistics and writes the
+    new running statistics in place, ``num_batches_tracked`` + 1
+    (``dffx/models/layers.py::apply_bn``), except while a checkpointed stage
+    is recomputed in the backward (``ckpt_stage``)."""
 
     def forward(self, x):
-        self._eval_only()
-        return batch_norm(x, self.running_mean, self.running_var, self.weight,
-                          self.bias, eps=self.eps)
+        if not self.training:
+            return batch_norm(x, self.running_mean, self.running_var, self.weight,
+                              self.bias, eps=self.eps)
+        y, mean, var = batch_norm_train(x, self.running_mean, self.running_var,
+                                        self.weight, self.bias, eps=self.eps)
+        if not _RECOMPUTING.get():
+            with torch.no_grad():
+                self.running_mean.copy_(mean)
+                self.running_var.copy_(var)
+                self.num_batches_tracked.add_(1)
+        return y
 
     _affine_key = _affine = None
 
     def fused_affine(self):
         """The fused fp32 (scale, shift) the kernels take: the same two
         tensors from call to call until a statistic or an affine parameter
-        changes (``tensor_stamp``), so that a ``ParamCache`` can tell."""
-        self._eval_only()
+        changes (``tensor_stamp``), so that a ``ParamCache`` can tell.  It
+        folds the running statistics, so it is for eval mode only."""
+        if self.training:
+            raise RuntimeError("fused_affine folds the running statistics: eval mode only; "
+                               "in training mode the BN normalises with batch statistics")
         src = (self.weight, self.bias, self.running_mean, self.running_var)
         if torch.is_grad_enabled() and any(t.requires_grad for t in src):
             return bn_fused_affine(*src, self.eps)  # part of a graph: not kept
@@ -147,10 +197,12 @@ class FMModule(nn.Module):
     """Full-resolution focus-measure extraction: dilated (1,9,9) conv + BN +
     ReLU, then an SRD (`Depth_Estimation_Network.py:131-143`).
 
-    Always runs as the three kernels, chained channel-first like
+    In eval mode it runs as the three kernels, chained channel-first like
     ``dffx/models/layers.py::_fm_fused_chain``: conv -> rb2d -> attention.  On
     CUDA tensors they launch the CUDA kernels; on CPU tensors their plain
-    twins run through the same chain."""
+    twins run through the same chain.  In training mode it runs its
+    ``Focus_extraction`` on stock ops, as ``fm_module_apply`` takes its XLA
+    chain under ``ctx.train``."""
 
     def __init__(self):
         super().__init__()
@@ -162,6 +214,8 @@ class FMModule(nn.Module):
         self._rb_params = ParamCache(rb2d_params)
 
     def forward(self, x):
+        if self.training:
+            return self.Focus_extraction(x)
         conv, _, srd = self.Focus_extraction
         args = (conv[0].weight, *conv[1].fused_affine())
         y = fm_conv_bn_relu(x, *args, params=self._conv_params(x, *args))

@@ -196,10 +196,15 @@ def test_e2e_forward_matches_stored_goldens():
 
 
 def test_e2e_rejects_train_mode_and_bad_shapes():
+    """A module constructed in train mode trains on stock ops; only the
+    folded eval affine the kernels take rejects train mode."""
     net = E2ENetwork()  # constructed in train mode
     fs, fd, fovs = torch.zeros(1, N, 32, 32, 3), torch.ones(1, N), torch.ones(1, N)
-    with pytest.raises(RuntimeError, match="eval-only"):
-        net(fs, fd, fovs)
+    assert all(torch.isfinite(t).all() for t in net(fs, fd, fovs))
+    head = net.optical_flow_aggregation.conv3
+    assert int(head[0][1].num_batches_tracked) == 1
+    with pytest.raises(RuntimeError, match="eval mode only"):
+        head[0][1].fused_affine()
     net.eval()
     with pytest.raises(ValueError, match="N must be 10"):
         net(torch.zeros(1, 9, 32, 32, 3), torch.ones(1, 9), torch.ones(1, 9))

@@ -181,10 +181,15 @@ def test_forward_matches_stored_goldens():
 
 
 def test_forward_rejects_train_mode_and_bad_shapes():
+    """A module constructed in train mode trains (batch statistics, one BN
+    update each); only the folded eval affine rejects train mode."""
     net = Network()  # constructed in train mode
     fs, fd = torch.zeros(1, 2, 32, 32, 3), torch.ones(1, 2)
-    with pytest.raises(RuntimeError, match="eval-only"):
-        net(fs, fd)
+    assert all(torch.isfinite(t).all() for t in net(fs, fd))
+    bn = net.DFF_net.FM_measure.Focus_extraction[0][1]
+    assert int(bn.num_batches_tracked) == 1
+    with pytest.raises(RuntimeError, match="eval mode only"):
+        bn.fused_affine()
     net.eval()
     with pytest.raises(ValueError, match="multiples of 32"):
         net(torch.zeros(1, 2, 32, 40, 3), fd)

@@ -328,9 +328,21 @@ def test_e2e_network_on_the_card_matches_cpu(cuda, rng):
         torch.testing.assert_close(g.cpu(), r, atol=1e-4, rtol=0)
 
 
+def _train_batch(rng, dev, b=2, n=5, h=32, w=32, e2e=False):
+    batch = {"fs": rng.uniform(-1, 1, (b, n, h, w, 3)).astype(np.float32),
+             "depth": rng.uniform(0.1, 1.5, (b, h, w)).astype(np.float32),
+             "focus_dists": np.tile(np.linspace(0.1, 1.5, n, dtype=np.float32), (b, 1)),
+             "mask": rng.random((b, h, w)) > 0.2}
+    if e2e:
+        batch["fovs"] = np.tile(np.linspace(1.003, 1.05, n, dtype=np.float32), (b, 1))
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
 def test_kept_parameters_follow_the_weights(cuda, rng):
     """The modules keep their kernels' packed weights between forwards; new
-    weights (a state dict loaded in place) reach the next forward."""
+    weights (a state dict loaded in place, an optimizer step, a train-mode BN
+    update) reach the next forward."""
+    from dffx_torch.train import LossConfig, create_train_state, make_train_step
     from dffx_torch.eval import load_params_auto
 
     fs = torch.from_numpy(rng.uniform(-1, 1, (1, 10, 64, 96, 3)).astype(np.float32)).to(cuda)
@@ -347,6 +359,53 @@ def test_kept_parameters_follow_the_weights(cuda, rng):
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
     assert (got[3] - first[3]).abs().max().item() > 1e-3
+    # one train step writes the weights (Adam) and the BN statistics in place
+    state = create_train_state(net, 1e-3)
+    make_train_step(1e-3, LossConfig(), e2e=True)(state, _train_batch(rng, cuda, 1, 10, 64, 96,
+                                                                      e2e=True))
+    net.eval()
+    cpu = load_params_auto(1, device="cpu", e2e=True)
+    cpu.load_state_dict(net.state_dict())
+    tk.reset_launches()
+    with torch.inference_mode():
+        trained = net(fs, fd, fovs)
+        want = cpu(fs.cpu(), fd.cpu(), fovs.cpu())
+    assert tk.launches == E2E_LAUNCHES
+    assert (trained[3] - got[3]).abs().max().item() > 1e-4
+    for g, w in zip(trained, want):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=0)
+
+
+def test_train_step_on_the_card_matches_cpu(cuda, rng):
+    """One DFFNet step from the same weights and batch: the loss, every
+    gradient (``tests/test_torch_train.py``'s bound: 0.25 max|g| + 1e-7 a
+    tensor, 5 % L2 over all) and the new BN statistics; no kernel launches."""
+    from dffx_torch.eval import load_params_auto
+    from dffx_torch.train import LossConfig, create_train_state, make_train_step
+
+    batch = _train_batch(rng, "cpu")
+    states = {}
+    for dev in ("cpu", cuda):
+        state = create_train_state(load_params_auto(0, device=dev, packed=False), 1e-3)
+        tk.reset_launches()
+        states[dev], logs = make_train_step(1e-3, LossConfig())(
+            state, {k: v.to(dev) for k, v in batch.items()})
+        states[dev].loss = float(logs["loss"])
+    assert tk.launches == dict.fromkeys(tk.launches, 0)
+    cpu, gpu = states["cpu"], states[cuda]
+    assert abs(gpu.loss - cpu.loss) <= 1e-5 * abs(cpu.loss)
+    num = den = 0.0
+    for (k, p), q in zip(cpu.model.named_parameters(), gpu.model.parameters()):
+        g, w = q.grad.cpu(), p.grad
+        assert (g - w).abs().max().item() <= 0.25 * w.abs().max().item() + 1e-7, k
+        num, den = num + float(((g - w) ** 2).sum()), den + float((w ** 2).sum())
+    assert num <= 0.05 ** 2 * den
+    want, got = cpu.model.state_dict(), gpu.model.state_dict()
+    for k, w in want.items():
+        if k.endswith("num_batches_tracked"):
+            assert int(got[k]) == int(w), k
+        elif k.endswith(("running_mean", "running_var")):
+            torch.testing.assert_close(got[k].cpu(), w, rtol=1e-5, atol=1e-6)
 
 
 def _kernel_call(rng, name, dev):
@@ -399,6 +458,25 @@ def test_module_forward_with_gradients_raises_on_the_card(cuda, rng):
         net(fs, fd)
     with torch.no_grad():
         assert all(torch.isfinite(t).all() for t in net(fs, fd))
+
+
+@pytest.mark.parametrize("e2e", [False, True], ids=["dffnet", "e2e"])
+def test_train_mode_forward_on_the_card_launches_no_kernel(cuda, rng, e2e):
+    """In training mode every module runs on stock ops: with gradients the
+    forward does not raise, launches no kernel, and the backward reaches
+    every used parameter."""
+    from dffx_torch.eval import load_params_auto
+
+    net = load_params_auto(0, device=cuda, e2e=e2e).train()
+    batch = _train_batch(rng, cuda, 1, 10, 32, 32, e2e=e2e)
+    extra = (batch["fovs"],) if e2e else ()
+    tk.reset_launches()
+    outs = net(batch["fs"], batch["focus_dists"], *extra)
+    sum(o.float().sum() for o in outs[:4]).backward()
+    torch.cuda.synchronize()
+    assert tk.launches == dict.fromkeys(tk.launches, 0)
+    unused = [k for k, p in net.named_parameters() if p.grad is None]
+    assert all(".pre_conv." in k or ".redir3." in k for k in unused), unused
 
 
 @pytest.mark.parametrize("e2e", [False, True], ids=["dffnet", "e2e"])
