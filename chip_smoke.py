@@ -25,6 +25,30 @@ and bf16, plain and remat, and the end-to-end network in fp32 and bf16, with
 no kernel launch in any train step; the trained weights in eval mode against
 the CPU, and a train-state checkpoint round trip.
 
+Then it runs the three command lines, each with every launch count at 0
+just before it and read just after:
+
+* ``eval_cli``: ``python -m dffx_torch.eval.test --dataset DDFF`` over 120
+  DDFF-12-sized stacks (10 x 383 x 552, padded to 384 x 576; the size of
+  DDFF-12's test set) at the default
+  batch 8 in fp32 and bf16, through ``Loader``, ``device_prefetch`` and
+  ``TimedForward``: ``AVG_time``, the wall rate from first batch to last and
+  the device's busy share; the predictions against a direct ``Network``
+  forward and against ``--batch_size 1``;
+* ``real_scenes_cli``: ``python -m dffx_torch.eval.real_scenes`` on one
+  scene of ten 720 x 1296 JPEGs (10 x 608 x 1088 after its crop and pad)
+  against a direct ``E2ENetwork`` forward;
+* ``train_cli``: ``python -m dffx_torch.train.cli --recipe DDFF`` at batch 4
+  (224 x 224 crops), validating 2 full-size stacks, each run in a process of
+  its own, without and with ``cudnn.benchmark``; the resume from
+  ``models/1.ckpt`` and the validation against the CPU.
+
+The card's installation lacks ``h5py`` and ``imageio``: those phases put
+stand-ins in their place (``HOST_GAPS``, printed as ``host_gaps``).  The
+command lines return nothing: what they compute is read through the hooks of
+``tests/torch_fixtures.py`` (``run_cli``, ``recording_train``,
+``recording_forwards``).
+
 Both eval paths run the default graph (``dffx_torch.models.packed.PACKED_DEFAULT``:
 DFFNet's EFDs and full-resolution stage packed space-to-depth, or not).  The
 packed graph is held against the unpacked one on the card
@@ -35,7 +59,8 @@ stand in the output.  The kernels a forward launches are the same either way.
 Each path's serving run starts with every launch count at 0 and checks the
 counts just after it.  Every phase prints one JSON line and raises on
 failure.  The second-to-last line lists each kernel with its launches in the
-end-to-end serving run (and, as ``train_launches``, in all train steps: 0),
+end-to-end serving run (as ``train_launches``, in all train steps: 0, and
+as ``cli_launches``, in each command line's run),
 its error against its twin, both times and the bound at the end-to-end path's
 shapes (rb_of_chain: the sum over its three pyramid levels, and each level
 under ``levels``), and for ``fm_conv_bn_relu`` the time of the one PyTorch call
@@ -49,6 +74,7 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -304,16 +330,18 @@ def fm_conv_library(torch, tk, dev) -> dict:
 
 
 def kernel_entry(name: str, rows: list, launches: int, train_launches: int,
-                 library: dict | None = None) -> dict:
+                 cli_launches: dict, library: dict | None = None) -> dict:
     """One kernel of the result line: its fp32 rows at the end-to-end path's
     shapes summed; a kernel with several (rb_of_chain's three pyramid levels)
-    also lists each under ``levels``.  ``bound_by``: what sets the largest
+    also lists each under ``levels``.  ``launches``: in the end-to-end serving
+    run; ``train_launches``: in every train step; ``cli_launches``: in each
+    command line's measured run (``train_cli``: its validation forwards).  ``bound_by``: what sets the largest
     row's bound.  ``library_ms``: ``library``'s time where one PyTorch call
     computes the function (``fm_conv_library``), else null (see
     ``bound_ms``)."""
     entry = {"name": name, "route": "cuda", "source": REPLACES[name][0],
              "replaces": REPLACES[name][1], "launches": launches,
-             "train_launches": train_launches,
+             "train_launches": train_launches, "cli_launches": cli_launches,
              "max_abs_err": max(r["max_abs_err"] for r in rows),
              "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
              "bound_ms": sum(r["bound_ms"] for r in rows),
@@ -617,6 +645,421 @@ def phase_train(torch, np, tk, dev, smi) -> int:
     return train_launches
 
 
+#: what the card's installation lacks of the command lines' host packages
+#: (listed on the card: PERF.md §7).  The phases below always put a stand-in
+#: module in their place while they run: the readers' and writers' own code
+#: runs on it, and only the file format is skipped.
+HOST_GAPS = {
+    "h5py": "DDFFBenchmark and DDFFTrainval read no h5 file: their files are dicts of "
+            "in-memory arrays (the readers' code runs on them)",
+    "imageio": "save_jet writes no depth JPEG: jet_colormap's images are kept in memory",
+}
+#: the eval command line's stacks (DDFF-12's test set) and its default batch
+DDFF_STACKS, DDFF_SHAPE, EVAL_BATCH = 120, (10, 383, 552), 8
+EVAL_DTYPES = ("fp32", "bf16")
+#: the real-scenes command line: one hand-held scene whose 1/12 border crop pads
+#: to 10 x 608 x 1088
+SCENE_SHAPE = (10, 720, 1296)
+#: the train command line's DDFF run: 20 train stacks (5 steps of batch 4) and 2 to validate
+TRAIN_STACKS, VAL_STACKS, TRAIN_STEPS = 20, 2, 5
+
+
+@contextlib.contextmanager
+def stand_ins(h5_files: dict, jpegs: list):
+    """``h5py`` whose ``File(path)`` is ``h5_files[path]`` (a dict of arrays)
+    and ``imageio`` whose ``imwrite`` appends (path, the image's shape) to
+    ``jpegs``, in ``sys.modules`` for the block (``HOST_GAPS``)."""
+    import types
+
+    h5py = types.ModuleType("h5py")
+    h5py.File = lambda path, mode="r": h5_files[str(path)]
+    imageio = types.ModuleType("imageio")
+    imageio.imwrite = lambda path, image, **kw: jpegs.append((str(path), image.shape))
+    saved = {name: sys.modules.get(name) for name in ("h5py", "imageio")}
+    sys.modules.update(h5py=h5py, imageio=imageio)
+    try:
+        yield
+    finally:
+        for name, module in saved.items():
+            if module is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = module
+
+
+def printed(out: str, key: str) -> float:
+    return float(next(ln.split(":", 1)[1] for ln in out.splitlines() if ln.startswith(key)))
+
+
+def device_seconds(torch, fn) -> tuple:
+    """Run ``fn()`` under ``torch.profiler``; returns the device seconds of
+    its kernels and of its copies and sets."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e6) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    copies = sum(s for k, s in rows if k.startswith(("Memcpy", "Memset")))
+    return sum(s for _, s in rows) - copies, copies
+
+
+def phase_eval_cli(torch, np, tk, dev, smi) -> dict:
+    """``python -m dffx_torch.eval.test --dataset DDFF`` at the default batch
+    8 in fp32 and bf16: ``Loader`` -> ``device_prefetch`` -> ``TimedForward``
+    over the 120 DDFF-12-sized stacks of its test set, against a direct
+    ``Network`` forward of the same padded stacks (fp32, 1e-4) and against
+    ``--batch_size 1``.  Between forwards the command line either waits for
+    the next batch (``loader_wait_s``, the host path) or works on the last
+    one (``consumer_s``).  Returns the launches of the measured fp32 b8 run."""
+    from dffx_torch.data import DDFFBenchmark, Loader, ddff_focus_dists, device_prefetch
+    from dffx_torch.data.native import normalize_pad_stack
+    from dffx_torch.eval import jet_colormap, load_params_auto
+    from dffx_torch.eval import test as cli
+    from torch_fixtures import run_cli
+
+    rng = np.random.default_rng(21)
+    stacks = rng.integers(0, 256, (DDFF_STACKS, *DDFF_SHAPE, 3), dtype=np.uint8)
+    net = load_params_auto(0, device=dev)  # the command line's --allow-random-init weights
+    spans = []  # (start, end) of every forward the command line makes
+    waits = []  # seconds the command line waits for each batch
+
+    class Spanned(cli.TimedForward):
+        def __call__(self, *args):
+            t0 = time.perf_counter()
+            outs = super().__call__(*args)  # synchronises
+            spans.append((t0, time.perf_counter()))
+            return outs
+
+    def waited_prefetch(*args, **kw):
+        batches = device_prefetch(*args, **kw)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(batches)
+                except StopIteration:
+                    return
+                waits.append(time.perf_counter() - t0)
+                yield item
+        finally:
+            batches.close()
+
+    fd = torch.from_numpy(ddff_focus_dists()[None].repeat(EVAL_BATCH, 0)).to(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        h5 = str(Path(tmp) / "DDFF" / "ddff-dataset-test.h5")
+        jpegs, launched, preds = [], {}, {}
+
+        def run(dtype, batch, tag):
+            tk.reset_launches()
+            spans.clear()
+            waits.clear()
+            out = run_cli(cli.main, [
+                "--dataset", "DDFF", "--data-root", tmp, "--results-root", f"{tmp}/{tag}/",
+                "--allow-random-init", "--dtype", dtype, "--batch_size", str(batch)])
+            torch.cuda.synchronize()
+            forwards = -(-DDFF_STACKS // batch)
+            check_launches(tk.launches, {k: v * forwards for k, v in DFFNET_LAUNCHES.items()},
+                           f"eval_cli {dtype} b{batch}")
+            launched[tag] = dict(tk.launches)
+            preds[tag] = np.load(f"{tmp}/{tag}/DDFF/predictions.npy")
+            return out
+
+        def loader_rate(path) -> float:
+            """Stacks/s of the command line's host path alone: the reader,
+            ``Loader`` (4 threads, batch 8) and ``device_prefetch`` to the card,
+            from the first batch on the card to the last."""
+            loader = Loader(cli.DDFFBenchmark(path), EVAL_BATCH, num_threads=4)
+            arrived = []
+            for _ in device_prefetch(iter(loader), dev, ("fs", "focus_dists")):
+                torch.cuda.synchronize()
+                arrived.append(time.perf_counter())
+            return EVAL_BATCH * (len(arrived) - 1) / (arrived[-1] - arrived[0])
+
+        def jet_seconds() -> float:
+            """Host seconds to colour one batch's depth maps (``jet_colormap``)."""
+            maps = np.random.default_rng(0).random((EVAL_BATCH, *DDFF_SHAPE[1:]))
+            t0 = time.perf_counter()
+            for m in maps:
+                jet_colormap(m)
+            return time.perf_counter() - t0
+
+        cli_forward = cli.TimedForward
+        cli.TimedForward, cli.device_prefetch = Spanned, waited_prefetch
+        try:
+            with stand_ins({h5: {"stack_test": stacks}}, jpegs):
+                for dtype in EVAL_DTYPES:
+                    run(dtype, EVAL_BATCH, f"{dtype}_warm")
+                    out = run(dtype, EVAL_BATCH, f"{dtype}_b8")
+                    wall = spans[-1][1] - spans[0][0]  # first batch to last
+                    in_forwards = sum(end - start for start, end in spans)
+                    loader_wait = sum(waits[1:])  # the first batch comes before the clock
+                    busy, copies = device_seconds(
+                        torch, lambda: run(dtype, EVAL_BATCH, f"{dtype}_profiled"))
+                    pwall = spans[-1][1] - spans[0][0]
+                    run(dtype, 1, f"{dtype}_b1")
+                    emit({"phase": "eval_cli", "device": smi, "dtype": dtype,
+                          "batch": EVAL_BATCH, "stacks": DDFF_STACKS,
+                          "shape": list(DDFF_SHAPE), "predictions": list(preds[f"{dtype}_b8"].shape),
+                          "avg_time_s": printed(out, "AVG_time"),
+                          "avg_time_stacks_per_s": 1.0 / printed(out, "AVG_time"),
+                          "wall_stacks_per_s": DDFF_STACKS / wall,
+                          "between_forwards_s": wall - in_forwards,
+                          "loader_wait_s": loader_wait,
+                          "consumer_s": wall - in_forwards - loader_wait,
+                          "loader_alone_stacks_per_s": loader_rate(h5),
+                          "jet_one_batch_s": jet_seconds(),
+                          "profiled_loop_s": pwall, "device_busy_share": busy / pwall,
+                          "copy_share": copies / pwall,
+                          "launches": launched[f"{dtype}_b8"],
+                          "b1_vs_b8_max_abs_err": float(np.abs(
+                              preds[f"{dtype}_b1"] - preds[f"{dtype}_b8"]).max()),
+                          "jpegs": len(jpegs)})
+        finally:
+            cli.TimedForward, cli.device_prefetch = cli_forward, device_prefetch
+    # the same padded stacks through Network directly, batch 8, fp32
+    direct = []
+    with torch.inference_mode():
+        for i in range(0, DDFF_STACKS, EVAL_BATCH):
+            fs = np.stack([normalize_pad_stack(s) for s in stacks[i:i + EVAL_BATCH]])
+            p3 = net(torch.from_numpy(fs).to(dev), fd[:len(fs)])[3]
+            # the command line's crop (DDFFBenchmark's 383 x 552)
+            direct.append(p3.float().cpu().numpy()[:, :DDFFBenchmark.HEIGHT, :DDFFBenchmark.WIDTH])
+    direct = np.concatenate(direct)
+    errs = {tag: float(np.abs(preds[tag] - direct).max()) for tag in ("fp32_b8", "fp32_b1")}
+    bf16 = {tag: float(np.abs(preds[tag] - direct).max()) for tag in ("bf16_b8", "bf16_b1")
+            if tag in preds}
+    finite = all(bool(np.isfinite(p).all()) for p in preds.values())
+    emit({"phase": "eval_cli_vs_network", "fp32_max_abs_err": errs, "atol": FP32_ATOL,
+          "bf16_vs_fp32_max_abs_err": bf16, "finite": finite,
+          "jpeg_images": sorted({tuple(shape) for _, shape in jpegs})})
+    check(finite and max(errs.values()) <= FP32_ATOL, f"eval_cli predictions: {errs}")
+    runs = 4 * len(EVAL_DTYPES)  # warm-up, measured, profiled and batch 1
+    check(len(jpegs) == runs * DDFF_STACKS, f"eval_cli wrote {len(jpegs)} depth images")
+    return launched["fp32_b8"]
+
+
+def write_scene(np, root: Path) -> None:
+    """One hand-held scene of ``SCENE_SHAPE`` JPEGs (smooth random content with
+    per-slice noise), ``focus_distance.txt`` and ``focal_length.txt``."""
+    import cv2
+
+    n, h, w = SCENE_SHAPE
+    rng = np.random.default_rng(22)
+    scene = root / "scene0"
+    scene.mkdir(parents=True)
+    base = cv2.GaussianBlur(rng.integers(0, 256, (h, w, 3), dtype=np.uint8), (0, 0), 6)
+    for i in range(n):
+        noisy = np.clip(base.astype(np.int16) + rng.integers(-6, 7, (h, w, 3)), 0, 255)
+        cv2.imwrite(str(scene / f"{i:02d}.jpg"), noisy.astype(np.uint8))
+    (scene / "focus_distance.txt").write_text(
+        "\n".join(f"{d:.6f}" for d in np.linspace(0.12, 0.9, n)) + "\n")
+    (scene / "focal_length.txt").write_text("0.00444\n")
+
+
+def phase_real_scenes_cli(torch, np, tk, dev, smi) -> dict:
+    """``python -m dffx_torch.eval.real_scenes`` on one scene that pads to
+    10 x 608 x 1088, fp32: depth and warped stack against a direct
+    ``E2ENetwork`` forward of the reader's sample (1e-4).  Returns the
+    launches."""
+    from dffx_torch.data import RealScenesDataset
+    from dffx_torch.eval import load_params_auto
+    from dffx_torch.eval import real_scenes as cli
+    from torch_fixtures import recording_forwards, run_cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_scene(np, Path(tmp) / "scenes")
+        jpegs = []
+        with stand_ins({}, jpegs), recording_forwards(cli) as kept:
+            tk.reset_launches()
+            out = run_cli(cli.main, ["--data-root", f"{tmp}/scenes", "--out", f"{tmp}/out/",
+                                     "--allow-random-init"])
+            torch.cuda.synchronize()
+            launched = dict(tk.launches)
+        pngs = sorted(p.name for p in (Path(tmp) / "out" / "warped_result" / "0").iterdir())
+        sample = RealScenesDataset(f"{tmp}/scenes")[0]
+    check_launches(launched, E2E_LAUNCHES, "real_scenes_cli")
+    net = load_params_auto(0, device=dev, e2e=True)
+    with torch.inference_mode():
+        o = net(*(torch.from_numpy(sample[k][None]).to(dev)
+                  for k in ("fs", "focus_dists", "fovs")))
+    h, w = sample["unpadded"]
+    (got,) = [{"depth": outs[3][0, :h, :w], "warped": outs[4][0, :, :h, :w]} for outs in kept]
+    depth = o[3].float().cpu().numpy()[0, :h, :w]
+    warped = o[4].float().cpu().numpy()[0, :, :h, :w]
+    errs = {k: float(np.abs(got[k] - want).max())
+            for k, want in (("depth", depth), ("warped", warped))}
+    finite = all(bool(np.isfinite(got[k]).all()) for k in ("depth", "warped"))
+    emit({"phase": "real_scenes_cli", "device": smi, "dtype": "fp32",
+          "shape": list(sample["fs"].shape), "unpadded": [h, w],
+          "avg_time_s": printed(out, "AVG_time"), "launches": launched,
+          "fp32_max_abs_err": errs, "atol": FP32_ATOL, "finite": finite, "pngs": len(pngs),
+          "jpegs": [list(shape) for _, shape in jpegs]})
+    check(finite and max(errs.values()) <= FP32_ATOL, f"real_scenes_cli against E2E: {errs}")
+    check(len(pngs) == SCENE_SHAPE[0] and len(jpegs) == 1, "real_scenes_cli outputs")
+    return launched
+
+
+def train_cli_data(np) -> dict:
+    """The DDFF-12 trainval file of the train command line's runs, as the dict
+    of arrays that stands in for it: ``TRAIN_STACKS`` and ``VAL_STACKS`` uint8
+    stacks of ``DDFF_SHAPE`` and disparities in the focus range (a tenth of
+    the pixels without ground truth)."""
+    rng = np.random.default_rng(23)
+    n, h, w = DDFF_SHAPE
+    split = {}
+    for name, count in (("train", TRAIN_STACKS), ("val", VAL_STACKS)):
+        split[f"stack_{name}"] = rng.integers(0, 256, (count, n, h, w, 3), dtype=np.uint8)
+        disp = rng.uniform(0.021, 0.28, (count, h, w)).astype(np.float32)
+        disp[rng.random((count, h, w)) < 0.1] = 0.0
+        split[f"disp_{name}"] = disp
+    return split
+
+
+def train_cli_argv(data_root: str, root: str) -> list:
+    return ["--recipe", "DDFF", "--lr", "1e-4", "--saveroot", root, "--batch_size", "4",
+            "--cpus", "8", "--max_epoch", "1", "--steps-per-epoch", str(TRAIN_STEPS),
+            "--data-root", data_root]
+
+
+def train_cli_child(spec: str) -> int:
+    """One run of the train command line in a process of its own (``--train-cli-
+    child``): cuDNN keeps the plans it chose per convolution for the life of a
+    process, whether it searched for them or not, so a run with
+    ``cudnn.benchmark`` measures its search only where no convolution of its
+    shapes ran before, as in a user's fresh process.  ``spec`` is JSON
+    ``{"data_root", "root", "benchmark", "resume"}``; the run's launches,
+    losses, times, validation outputs and the train state at the save of
+    ``models/1.ckpt`` (or, resuming, just after its restore) go to
+    ``root/run.pt``."""
+    import numpy as np
+    import torch
+
+    sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
+    from dffx_torch.ops import kernels as tk
+    from dffx_torch.train import cli
+    from torch_fixtures import recording_train, run_cli
+
+    spec = json.loads(spec)
+    torch.cuda.init()
+    snapshot = {}
+
+    def keep(state):
+        snapshot.update({k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()})
+        for i, p in enumerate(state.model.parameters()):
+            for slot, v in state.optimizer.state.get(p, {}).items():
+                snapshot[f"adam.{i}.{slot}"] = v.detach().cpu().clone()
+        snapshot["step"] = torch.tensor(state.step)
+
+    save_async, restore = cli.ckpt.save_async, cli.ckpt.restore
+
+    def kept_save(path, state):
+        if Path(path).name == "1.ckpt":
+            keep(state)
+        return save_async(path, state)
+
+    def kept_restore(path, state):
+        keep(restore(path, state))
+        return state
+
+    cli.ckpt.save_async, cli.ckpt.restore = kept_save, kept_restore
+    cli.CUDNN_BENCHMARK = spec["benchmark"]
+    argv = train_cli_argv(spec["data_root"], spec["root"])
+    argv += ["--load_epoch", "-1"] if spec["resume"] else []
+    h5 = str(Path(spec["data_root"]) / "DDFF" / "ddff-dataset-trainval.h5")
+    tk.reset_launches()
+    with stand_ins({h5: train_cli_data(np)}, []), recording_train(cli) as ran:
+        out = run_cli(cli.main, argv)
+    torch.cuda.synchronize()
+    torch.save({"out": out, "launches": dict(tk.launches), "losses": ran["losses"],
+                "step_seconds": ran["step_seconds"], "val_seconds": ran["val_seconds"],
+                "val_pred3": ran["val_pred3"], "step": ran["state"].step, "snapshot": snapshot},
+               Path(spec["root"]) / "run.pt")
+    return 0
+
+
+def phase_train_cli(torch, np, tk, dev, smi) -> dict:
+    """``python -m dffx_torch.train.cli --recipe DDFF`` at batch 4 on
+    DDFF-12-sized stacks that ``DDFFTrainval`` crops to 224 x 224, one epoch
+    of 5 steps and a second of 5, validating 2 full-size stacks at epochs 0
+    and 1.  Four runs, each in a process of its own (``train_cli_child``), in
+    turns without, with, with and without ``cudnn.benchmark``, then the last
+    run resumed.  Checks finite losses, ``models/1.ckpt``, that
+    ``--load_epoch -1`` restores the state of its save bit for bit, that epoch
+    1's validation equals the CPU's forward of the same weights (1e-4), and
+    the launches: one of each DFFNet kernel a validation forward, none in
+    train steps.  Returns the launches of the last run."""
+    from dffx_torch.data import ddff_focus_dists
+    from dffx_torch.eval import load_params_auto
+
+    n, h, w = DDFF_SHAPE
+    val_forwards = 2 * VAL_STACKS  # epochs 0 and 1
+    want = {k: v * val_forwards for k, v in DFFNET_LAUNCHES.items()}
+
+    def child(spec: dict) -> dict:
+        subprocess.run([sys.executable, str(Path(__file__).resolve()), "--train-cli-child",
+                        json.dumps(spec)], check=True, timeout=600)
+        return torch.load(Path(spec["root"]) / "run.pt", weights_only=False)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        for i, bench in enumerate((False, True, True, False)):
+            root = f"{tmp}/run{i}/"
+            ran = child({"data_root": tmp, "root": root, "benchmark": bench, "resume": False})
+            check_launches(ran["launches"], want, f"train_cli run {i}")
+            steps_ms = [s * 1e3 for s in ran["step_seconds"]]
+            val_ms = [s * 1e3 for e in sorted(ran["val_seconds"]) for s in ran["val_seconds"][e]]
+            ckpt_file = Path(root) / "models" / "1.ckpt"
+            emit({"phase": "train_cli", "device": smi, "run": i, "cudnn_benchmark": bench,
+                  "batch": 4, "crop": [n, 224, 224], "val_shape": [n, h, w],
+                  "first_step_ms": steps_ms[0],
+                  "ms_per_step": statistics.median(steps_ms[1:]), "steps_ms": steps_ms,
+                  "first_val_forward_ms": val_ms[0],
+                  "val_forward_ms": statistics.median(val_ms[1:]), "val_ms": val_ms,
+                  "losses": ran["losses"], "launches": ran["launches"],
+                  "train_step_launches": sum(ran["launches"].values())
+                  - val_forwards * sum(DFFNET_LAUNCHES.values()),
+                  "ckpt_written": ckpt_file.exists()})
+            check(all(np.isfinite(ran["losses"])) and len(ran["losses"]) == 2 * TRAIN_STEPS,
+                  f"train_cli losses {ran['losses']}")
+            check(ckpt_file.exists(), "train_cli: no models/1.ckpt")
+            runs[i] = ran
+        root = f"{tmp}/run3/"
+        resumed = child({"data_root": tmp, "root": root, "benchmark": False, "resume": True})
+        cpu_net = load_params_auto(str(Path(root) / "models" / "1.ckpt"), device="cpu")
+    saved, back = runs[3]["snapshot"], resumed["snapshot"]
+    same = sorted(saved) == sorted(back) and all(torch.equal(saved[k], back[k]) for k in saved)
+    val_gap = max(float(np.abs(a - b).max())
+                  for a, b in zip(resumed["val_pred3"][1], runs[3]["val_pred3"][1]))
+    check_launches(resumed["launches"], {k: v * VAL_STACKS for k, v in DFFNET_LAUNCHES.items()},
+                   "train_cli resumed")
+    # epoch 1's validation on the card against the CPU's forward of 1.ckpt
+    split = train_cli_data(np)
+    fd = ddff_focus_dists()
+    fd = (fd - fd.min()) / (fd.max() - fd.min())  # DDFFTrainval's normalised distances
+    errs = []
+    with torch.inference_mode():
+        for s in range(VAL_STACKS):
+            fs = split["stack_val"][s].astype(np.float32) / 127.5 - 1.0
+            fs = np.pad(fs, ((0, 0), (0, -h % 32), (0, -w % 32), (0, 0)), constant_values=-1.0)
+            p3 = cpu_net(torch.from_numpy(fs[None]), torch.from_numpy(fd[None]))[3]
+            errs.append(float(np.abs(runs[3]["val_pred3"][1][s][:h, :w]
+                                     - p3.numpy()[0, :h, :w]).max()))
+    emit({"phase": "train_cli_resume_and_validation", "epoch": 1,
+          "fp32_max_abs_err_vs_cpu": max(errs), "atol": FP32_ATOL,
+          "restored_bit_equal": same, "tensors_compared": len(saved),
+          "resumed_auto": "auto-resume from epoch 1" in resumed["out"],
+          "resumed_step": resumed["step"], "resumed_val_max_abs_gap": val_gap,
+          "resumed_launches": resumed["launches"]})
+    check(same and "auto-resume from epoch 1" in resumed["out"]
+          and resumed["step"] == 2 * TRAIN_STEPS, "train_cli resume")
+    check(max(errs) <= FP32_ATOL and val_gap <= FP32_ATOL,
+          f"train_cli validation: {errs} against the CPU, {val_gap} resumed")
+    return runs[3]["launches"]
+
+
 def golden_inputs(np):
     """tests/test_golden_regression.py's inputs (seed 7 params, rng 42)."""
     rng = np.random.default_rng(42)
@@ -633,7 +1076,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT))
+    sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
     from dffx_torch.eval import TimedForward, load_params_auto
     from dffx_torch.models.packed import PACKED_DEFAULT
     from dffx_torch.ops import _build
@@ -795,9 +1238,17 @@ def main() -> int:
     library = fm_conv_library(torch, tk, dev)
     emit({"phase": "fm_conv_library", **library})
 
+    # 11. the command lines, each run with every count at 0 just before it
+    emit({"phase": "host_gaps", "not_run_on_card": [
+        {"package": pkg, "missing": True, "instead": what} for pkg, what in HOST_GAPS.items()]})
+    cli_runs = {"eval_cli": phase_eval_cli(torch, np, tk, dev, smi),
+                "real_scenes_cli": phase_real_scenes_cli(torch, np, tk, dev, smi),
+                "train_cli_validation": phase_train_cli(torch, np, tk, dev, smi)}
+
     emit({"phase": "time", "build_seconds": seconds,
           "run_seconds": time.perf_counter() - t_start, "limit_seconds": 1200})
     emit({"kernels": [kernel_entry(name, path_rows[name], served[name], train_launches,
+                                   {path: got[name] for path, got in cli_runs.items()},
                                    library if name == "fm_conv_bn_relu" else None)
                       for name in REPLACES]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -806,4 +1257,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--train-cli-child"]:
+        sys.exit(train_cli_child(sys.argv[2]))
     sys.exit(main())

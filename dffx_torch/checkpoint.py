@@ -255,9 +255,13 @@ class AsyncSave:
 def save_async(path: str, state) -> AsyncSave:
     """``save`` with the write in a background thread: the state is copied to
     host memory first (which waits for the card), so training may go on at
-    once.  Call ``.wait()`` before relying on the file."""
+    once.  Call ``.wait()`` before relying on the file.
+
+    The copy is explicit: on the CPU a tensor's ``.numpy()`` shares its
+    memory, so without it the next step's in-place updates would reach the
+    file while it is written."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    return AsyncSave(path, _train_leaves(state))
+    return AsyncSave(path, {k: np.array(v) for k, v in _train_leaves(state).items()})
 
 
 def restore(path: str, state):

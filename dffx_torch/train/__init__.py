@@ -6,6 +6,8 @@ heads and Adam(0.9, 0.99) over the weights and biases, on stock ops (the CUDA
 kernels are eval-only, as the Pallas kernels are in ``dffx``).  The per-dataset
 loss settings are ``dffx_torch.train.recipes.RECIPES``; the train state goes to
 and from ``dffx``'s checkpoint format through ``dffx_torch.checkpoint``.
+``make_eval_fn`` is the validation forward and ``python -m
+dffx_torch.train.cli`` the train command line (``dffx/train/cli.py``).
 """
 
 from dffx_torch.train.loop import (
@@ -13,6 +15,7 @@ from dffx_torch.train.loop import (
     TrainState,
     conf_masked_mse,
     create_train_state,
+    make_eval_fn,
     make_train_step,
     masked_mse,
     total_loss,
@@ -23,6 +26,7 @@ __all__ = [
     "TrainState",
     "conf_masked_mse",
     "create_train_state",
+    "make_eval_fn",
     "make_train_step",
     "masked_mse",
     "total_loss",

@@ -146,3 +146,27 @@ def make_train_step(lr: float, loss_cfg: LossConfig, *, e2e: bool = False,
         return state, logs
 
     return step
+
+
+def make_eval_fn(*, e2e: bool = False, compute_dtype: torch.dtype = torch.float32
+                 ) -> Callable[[nn.Module, Dict[str, torch.Tensor]], Tuple[torch.Tensor, ...]]:
+    """The validation forward ``(model, batch) -> outputs``: all four heads
+    (and, ``e2e``, the warped stack and the motion) of the model in eval mode
+    under ``torch.inference_mode()``, then the model back in training mode.
+
+    Eval mode reads BN's running statistics and writes none, and on the card
+    it runs the CUDA kernels, which would raise under autograd
+    (``kernels.cuts_gradients``); inference mode records no graph.
+    ``batch`` holds ``fs``, ``focus_dists`` and (``e2e``) ``fovs`` on the
+    model's device; ``fs`` is cast to ``compute_dtype``."""
+
+    def fwd(model: nn.Module, batch: Dict[str, torch.Tensor]):
+        extra = (batch["fovs"],) if e2e else ()
+        model.eval()
+        try:
+            with torch.inference_mode():
+                return model(batch["fs"].to(compute_dtype), batch["focus_dists"], *extra)
+        finally:
+            model.train()
+
+    return fwd

@@ -1,5 +1,6 @@
 """Per-dataset training recipes: every constant of the five reference
-``train_code_*.py`` scripts, as ``dffx/train/recipes.py`` tables them.
+``train_code_*.py`` scripts, as ``dffx/train/recipes.py`` tables them, and
+``Recipe.make_datasets`` over the port's readers.
 
 Shared template: batch 4, Adam(lr, betas=(0.9, 0.99)), loss weights
 mid 0.3 / D2 0.5 / D3 0.7 / D4 1.0, save/validate every epoch.  Deltas:
@@ -20,8 +21,17 @@ mid 0.3 / D2 0.5 / D3 0.7 / D4 1.0, save/validate every epoch.  Deltas:
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
+from dffx_torch.data import (
+    DDFFTrainval,
+    DefocusNetDataset,
+    FlyingThings3DDataset,
+    HCIDataset,
+    SimulatedScenesDataset,
+    SmartphoneDataset,
+)
 from dffx_torch.train.loop import LossConfig
 
 SMARTPHONE_MIN = 1 / 3.91092
@@ -43,6 +53,45 @@ class Recipe:
         "accuracy_1", "accuracy_2", "accuracy_3",
     )
     val_crop_rows: Optional[int] = None  # FlyingThings validates on 540 rows
+
+    def make_datasets(self, data_root: str, seed: int):
+        """Returns (train_dataset, val_dataset): the port's readers
+        (``dffx_torch.data``) at ``dffx``'s paths under ``data_root``."""
+        j = lambda *p: os.path.join(data_root, *p)  # noqa: E731
+        if self.name == "DDFF":
+            h5 = j("DDFF", "ddff-dataset-trainval.h5")
+            return (
+                DDFFTrainval(h5, split="train", seed=seed),
+                DDFFTrainval(h5, split="val"),
+            )
+        if self.name == "HCI":
+            h5 = j("HCI", "HCI_FS_trainval.h5")
+            return (
+                HCIDataset(h5, split="train", seed=seed),
+                HCIDataset(h5, split="val"),
+            )
+        if self.name == "Defocus":
+            return (
+                DefocusNetDataset(j("fs_6/"), mode="train", seed=seed),
+                DefocusNetDataset(j("fs_6/"), mode="test"),
+            )
+        if self.name == "FlyingThings":
+            return (
+                FlyingThings3DDataset(j("FlyingThings3D_FS/"), mode="train", seed=seed),
+                FlyingThings3DDataset(j("FlyingThings3D_FS/"), mode="val"),
+            )
+        if self.name == "Smartphone":
+            return (
+                SmartphoneDataset(j("Real_data_DP/"), mode="train", seed=seed),
+                SmartphoneDataset(j("Real_data_DP/"), mode="test"),
+            )
+        if self.name == "Simulated":
+            root = j("NYU_move_out_0_1/")
+            return (
+                SimulatedScenesDataset(root, mode="train", seed=seed),
+                SimulatedScenesDataset(root, mode="val"),
+            )
+        raise KeyError(self.name)
 
 
 RECIPES = {

@@ -537,3 +537,125 @@ def test_kept_packed_weights_follow_their_sources(cuda, rng):
     with torch.inference_mode():
         for g, w in zip(packed(fs, fd), other(fs, fd)):
             torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+
+
+# --- the command lines and the prefetch on the card ---------------------------
+# The card's installation has no h5py and no imageio (PERF.md §7): these tests
+# read cv2, EXR and in-memory data, and keep the depth images in memory.
+
+
+@pytest.fixture
+def no_jpegs(monkeypatch):
+    """``imageio`` whose ``imwrite`` keeps each image in a list."""
+    import sys
+    import types
+
+    kept = []
+    imageio = types.ModuleType("imageio")
+    imageio.imwrite = lambda path, image, **kw: kept.append((str(path), image))
+    monkeypatch.setitem(sys.modules, "imageio", imageio)
+    return kept
+
+
+def _cli(main, argv) -> dict:
+    """Run a command line in-process; returns its ``Avg_*`` prints."""
+    import torch_fixtures as fx
+
+    vals = {}
+    for line in fx.run_cli(main, argv).splitlines():
+        key, sep, value = line.partition(":")
+        if sep and key.strip().startswith("Avg_"):
+            vals[key.strip()] = float(value)
+    return vals
+
+
+def test_prefetch_pins_and_copies_on_a_side_stream(cuda, rng, monkeypatch):
+    """Each array is pinned and copied with ``non_blocking`` on a stream other
+    than the consumer's; what arrives equals a synchronous copy."""
+    from dffx_torch.data import device_prefetch
+
+    batches = [{"fs": rng.uniform(-1, 1, (4, 10, 64, 96, 3)).astype(np.float32),
+                "mask": rng.random((4, 64, 96)) > 0.5} for _ in range(3)]
+    seen, to = [], torch.Tensor.to
+
+    def spy(self, *args, **kw):
+        if self.device.type == "cpu":
+            seen.append((self.is_pinned(), kw.get("non_blocking"),
+                         torch.cuda.current_stream() != torch.cuda.default_stream()))
+        return to(self, *args, **kw)
+
+    monkeypatch.setattr(torch.Tensor, "to", spy)
+    got = [dev for _, dev in device_prefetch(iter(batches), cuda, ("fs", "mask"))]
+    monkeypatch.undo()
+    assert seen == [(True, True, True)] * 6
+    for b, g in zip(batches, got):
+        for k in b:
+            assert g[k].device.type == "cuda"
+            assert torch.equal(g[k], torch.from_numpy(b[k]).to(cuda))
+
+
+def test_eval_cli_on_the_card_matches_cpu(cuda, tmp_path, no_jpegs):
+    """DefocusNet at 5 x 64 x 64, batch 8 (two stacks a forward): the metrics
+    on the card within 1e-4 relative of the CPU's, one launch of each DFFNet
+    kernel a forward."""
+    import torch_fixtures as fx
+    from dffx_torch.eval import test as T
+
+    data = fx.write_fs6(str(tmp_path), modes=("test",))[: -len("fs_6/")]
+    argv = ["--dataset", "DefocusNet", "--data-root", data, "--allow-random-init"]
+    want = _cli(T.main, argv + ["--results-root", str(tmp_path / "cpu"), "--device", "cpu"])
+    tk.reset_launches()
+    got = _cli(T.main, argv + ["--results-root", str(tmp_path / "gpu")])
+    assert {k: tk.launches[k] for k in DFFNET_KERNELS} == dict.fromkeys(DFFNET_KERNELS, 1)
+    assert sorted(got) == sorted(want) and len(want) == 9
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, err_msg=k)
+    assert len(no_jpegs) == 4
+
+
+def test_real_scenes_cli_on_the_card_matches_cpu(cuda, tmp_path, no_jpegs):
+    import torch_fixtures as fx
+    from dffx_torch.eval import real_scenes as RS
+
+    scenes = fx.write_real_scene(str(tmp_path / "scenes"))
+    argv = ["--data-root", scenes, "--allow-random-init"]
+    with fx.recording_forwards(RS) as want:
+        _cli(RS.main, argv + ["--out", str(tmp_path / "cpu"), "--device", "cpu"])
+    tk.reset_launches()
+    with fx.recording_forwards(RS) as got:
+        _cli(RS.main, argv + ["--out", str(tmp_path / "gpu")])
+    assert dict(tk.launches) == E2E_LAUNCHES
+    for k, name in ((3, "depth"), (4, "warped")):
+        np.testing.assert_allclose(got[0][k], want[0][k], atol=1e-4, rtol=0, err_msg=name)
+
+
+def test_train_cli_on_the_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """The DDFF recipe on an in-memory set of 4 stacks of 5 x 32 x 32, batch 4,
+    one step an epoch: the first loss within 1e-5 relative of the CPU's, the
+    validation launches one of each DFFNet kernel a forward (epochs 0 and 1)
+    and the train steps none, ``models/1.ckpt`` written."""
+    import torch_fixtures as fx
+    from dffx_torch.train import cli
+    from dffx_torch.train.recipes import Recipe
+
+    r = np.random.default_rng(0)
+    samples = [{"fs": r.uniform(-1, 1, (5, 32, 32, 3)).astype(np.float32),
+                "depth": r.uniform(0.1, 1.5, (32, 32)).astype(np.float32),
+                "focus_dists": np.linspace(0.1, 1.5, 5, dtype=np.float32),
+                "mask": np.ones((32, 32), bool), "unpadded": (32, 32)} for _ in range(5)]
+    monkeypatch.setattr(Recipe, "make_datasets", lambda self, root, seed: (samples[:4], samples[4:]))
+    benchmark = torch.backends.cudnn.benchmark
+    argv = ["--recipe", "DDFF", "--lr", "1e-4", "--batch_size", "4", "--cpus", "2",
+            "--steps-per-epoch", "1", "--max_epoch", "1"]
+    with fx.recording_train(cli) as want:
+        _cli(cli.main, argv + ["--saveroot", str(tmp_path / "cpu"), "--device", "cpu"])
+    tk.reset_launches()
+    try:
+        with fx.recording_train(cli) as got:
+            _cli(cli.main, argv + ["--saveroot", str(tmp_path / "gpu")])
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    assert {k: tk.launches[k] for k in DFFNET_KERNELS} == dict.fromkeys(DFFNET_KERNELS, 2)
+    assert tk.launches["rb_of_chain"] == tk.launches["motion_head_conv_chain"] == 0
+    assert got["losses"][0] == pytest.approx(want["losses"][0], rel=1e-5)
+    assert np.isfinite(got["losses"]).all() and (tmp_path / "gpu" / "models" / "1.ckpt").exists()

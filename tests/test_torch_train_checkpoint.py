@@ -138,6 +138,37 @@ def test_a_step_after_a_round_trip_equals_the_step_without(tmp_path, batch, back
         assert torch.equal(a[k], b[k]), k
 
 
+def test_save_async_writes_the_state_of_its_call(tmp_path, batch, monkeypatch):
+    """Training on in place while the file is written does not reach the file:
+    the write is held back until the model and Adam's moments have changed,
+    and the file still restores the state at the call, bit for bit."""
+    import threading
+
+    state = _stepped(batch)
+    want = {k: v.clone() for k, v in state.model.state_dict().items()}
+    moments = {slot: {k: v.copy() for k, v in arrays.items()}
+               for slot, arrays in _moments(state).items()}
+    release, write = threading.Event(), ckpt._write
+    monkeypatch.setattr(ckpt, "_write",
+                        lambda path, leaves: (release.wait(10), write(path, leaves)))
+    path = str(tmp_path / "1.ckpt")
+    pending = ckpt.save_async(path, state)
+    with torch.no_grad():
+        for v in state.model.state_dict().values():
+            v.add_(1)
+        for slots in state.optimizer.state.values():
+            slots["exp_avg"].add_(1)
+    release.set()
+    pending.wait()
+    resumed = ckpt.restore(path, _port_state(3))
+    got = resumed.model.state_dict()
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+    for slot, arrays in _moments(resumed).items():
+        for k, v in arrays.items():
+            np.testing.assert_array_equal(v, moments[slot][k], err_msg=f"{slot} {k}")
+
+
 def test_restore_refuses_a_file_without_a_train_state(tmp_path):
     path = str(tmp_path / "params.ckpt")
     jckpt.save(path, jinit(network_specs(), seed=0))
