@@ -43,6 +43,24 @@ just before it and read just after:
   its own, without and with ``cudnn.benchmark``; the resume from
   ``models/1.ckpt`` and the validation against the CPU.
 
+Then the simulator and the front door, with every count at 0 just before
+each and read just after (neither launches any of the five kernels):
+
+* ``simulate``: ``python -m dffx_torch simulate`` (``dffx_torch.sim``) at its
+  defaults (224 x 352, 10 slices, 2,000 planes, ``--seed 0``) over 16
+  NYU-v2-shaped scenes (480 x 640 RGB-D from a seed, in the labeled file's
+  layout): its ``avg_time`` a scene, each scene's render program on the card
+  alone (``profiling.device_loop_time``), the device's busy share over a
+  profiled run; the first two scenes against ``--device cpu`` (uint8 within 1
+  at more than 99.9 % of the pixels, median 0; depth and defocus to rtol 1e-4
+  / atol 1e-3); TF32 off after the command line, and the library's render the
+  same bits whatever the flag; then ``SimulatedScenesDataset`` in train and
+  val mode and 2 steps of the ``Simulated`` recipe (E2E) on the written
+  scenes, and one validation forward;
+* ``front_door``: ``python -m dffx_torch doctor`` (which must name the card
+  and its power limit), ``--version`` and ``<command> --help`` for the five
+  commands, each in a process of its own: all exit 0.
+
 The card's installation lacks ``h5py`` and ``imageio``: those phases put
 stand-ins in their place (``HOST_GAPS``, printed as ``host_gaps``).  The
 command lines return nothing: what they compute is read through the hooks of
@@ -1060,6 +1078,232 @@ def phase_train_cli(torch, np, tk, dev, smi) -> dict:
     return runs[3]["launches"]
 
 
+#: the simulate phase: NYU-v2's labeled scenes (480 x 640 RGB-D) made from a
+#: seed, rendered by the simulator's command line at its defaults (224 x 352,
+#: 10 slices, 2,000 planes); the first SIM_CPU_SCENES again on the card's host
+SIM_SCENES, NYU_SHAPE, SIM_CPU_SCENES, SIM_SLICES = 16, (480, 640), 2, 10
+#: the simulator's bounds (tests/test_torch_sim.py): uint8 |d| <= 1 at more than
+#: 99.9 % of the pixels with a median of 0; disparity and depth to rtol / atol
+SIM_U8_SHARE, SIM_RTOL, SIM_ATOL = 0.999, 1e-4, 1e-3
+#: the Simulated recipe's train steps on the simulator's output
+SIM_TRAIN_BATCH, SIM_TRAIN_STEPS = 4, 2
+
+
+class H5File(dict):
+    """A stand-in h5 file (``HOST_GAPS``): a dict of arrays that also opens
+    as a context, as ``load_nyu_v2`` opens it."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def nyu_mat(np) -> H5File:
+    """``SIM_SCENES`` scenes of NYU-v2's labeled file in its v7.3 layout
+    (``images (B, 3, W, H)`` uint8, ``depths (B, W, H)`` metres), made from a
+    seed: smooth textured images; depths of 0.7-4 m, smooth, with a step edge
+    and a tilted plane."""
+    import cv2
+
+    rng = np.random.default_rng(31)
+    h, w = NYU_SHAPE
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    images, depths = [], []
+    for _ in range(SIM_SCENES):
+        img = cv2.GaussianBlur(rng.integers(0, 256, (h, w, 3), dtype=np.uint8), (0, 0), 4)
+        images.append(cv2.normalize(img, None, 0, 255, cv2.NORM_MINMAX))
+        base = cv2.GaussianBlur(rng.uniform(0.7, 4.0, (h // 8, w // 8)), (0, 0), 2)
+        depth = cv2.resize(base, (w, h)) + (xx > rng.uniform(0.3, 0.7) * w) * rng.uniform(0.5, 1.5)
+        depths.append(depth + 0.5 * yy / h)
+    return H5File(images=np.stack(images).transpose(0, 3, 2, 1),
+                  depths=np.stack(depths).transpose(0, 2, 1).astype(np.float32))
+
+
+def sim_gap(np, got, want) -> dict:
+    """The bounds' numbers for two scenes' files: uint8 share within 1 and
+    median, and the worst relative excess of depth and defocus over rtol /
+    atol (<= 1 passes; ``inf`` where the warped depth is 0 must match)."""
+    d = np.abs(got["imgs"].astype(int) - want["imgs"].astype(int))
+    over = {}
+    for key in ("depth", "defocus"):
+        a, b = got[key], want[key]
+        same_inf = np.array_equal(np.isinf(a), np.isinf(b))
+        fin = np.isfinite(b)
+        over[key] = float((np.abs(a[fin] - b[fin]) / (SIM_ATOL + SIM_RTOL * np.abs(b[fin])))
+                          .max()) if same_inf else float("inf")
+    return {"u8_max": int(d.max()), "u8_share_within_1": float((d <= 1).mean()),
+            "u8_median": float(np.median(d)), "depth_over_bound": over["depth"],
+            "defocus_over_bound": over["defocus"]}
+
+
+def read_sim_scene(np, root: str, idx: int) -> dict:
+    import cv2
+    import scipy.io as sio
+
+    path = Path(root) / str(idx)
+    mats = sio.loadmat(str(path / "depth.mat"))
+    cam = sio.loadmat(str(path / "camera_param.mat"))
+    return {"imgs": np.stack([cv2.imread(str(path / f"img{i}.png")) for i in range(SIM_SLICES)]),
+            "depth": mats["depth"], "defocus": mats["defocus"],
+            "camera": {k: v for k, v in cam.items() if not k.startswith("__")}}
+
+
+def phase_simulate(torch, np, tk, dev, smi) -> None:
+    """``python -m dffx_torch simulate`` (``dffx_torch.sim.simulator.main``)
+    on the card at its defaults over ``SIM_SCENES`` NYU-shaped scenes: its
+    ``avg_time`` (wall seconds a scene), the device seconds a scene of each
+    scene's render program (``profiling.device_loop_time``), the device's
+    busy share over a profiled run; the first scenes against ``--device
+    cpu``; TF32 off; then 2 steps of the ``Simulated`` recipe (E2E) on the
+    written scenes through ``SimulatedScenesDataset`` and ``Loader``, and one
+    validation forward.  No kernel launches in the render or the steps."""
+    from dffx_torch.data import Loader, SimulatedScenesDataset
+    from dffx_torch.sim import simulator as sim
+    from dffx_torch.train import make_train_step
+    from dffx_torch.train.loop import make_eval_fn
+    from dffx_torch.train.recipes import RECIPES
+    from dffx_torch.utils.profiling import device_loop_time
+    from torch_fixtures import run_cli
+
+    rendered = []  # (device, (image, depth, depth_px, slice_params)) of each scene
+    operands = sim.scene_operands
+
+    def kept(image, depth, depth_px, slice_params, device):
+        rendered.append((torch.device(device), (image, depth, depth_px, slice_params)))
+        return operands(image, depth, depth_px, slice_params, device)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mat = f"{tmp}/nyu_depth_v2_labeled.mat"
+        gpu_dir, cpu_dir, prof_dir = f"{tmp}/NYU_move_out_0_1/", f"{tmp}/cpu/", f"{tmp}/prof/"
+        argv = ["--nyu-mat", mat, "--seed", "0"]
+        # PyTorch's default for cuDNN is TF32 on: the command line turns it off
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        sim.scene_operands = kept
+        try:
+            with stand_ins({mat: nyu_mat(np)}, []):
+                tk.reset_launches()
+                t0 = time.perf_counter()
+                out = run_cli(sim.main, argv + ["--dataset", gpu_dir])
+                wall = time.perf_counter() - t0
+                launched = dict(tk.launches)
+                tf32 = [torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32]
+                t0 = time.perf_counter()
+                busy, copies = device_seconds(torch, lambda: run_cli(
+                    sim.main, argv + ["--dataset", prof_dir, "--limit", "4"]))
+                pwall = time.perf_counter() - t0
+                cpu_out = run_cli(sim.main, argv + ["--dataset", cpu_dir, "--device", "cpu",
+                                                    "--limit", str(SIM_CPU_SCENES)])
+        finally:
+            sim.scene_operands = operands
+        check_launches(launched, {}, "simulate")
+        check(tf32 == [False, False], f"simulate left TF32 on: {tf32}")
+        scenes = [sc for d, sc in rendered if d.type == "cuda"]
+        check(len(scenes) == SIM_SCENES + 4, f"simulate rendered {len(scenes)} scenes")
+        # each scene's render program alone on the card, operands in place
+        with torch.inference_mode(), sim._fp32_exact(dev):
+            device_s = [device_loop_time(sim.render_program,
+                                         *sim.scene_operands(*sc, dev), iters=3)
+                        for sc in scenes[:SIM_SCENES]]
+        # the library's render under TF32 on gives the same bits, and restores the flag
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        on = sim.render_scene_fused(*scenes[0], device=dev)
+        restored = [torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32]
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        off = sim.render_scene_fused(*scenes[0], device=dev)
+        immune = bool(np.array_equal(on[0], off[0]) and np.array_equal(on[1], off[1]))
+        # the card's files against the CPU's
+        gaps, cams_equal = [], True
+        for i in range(SIM_CPU_SCENES):
+            got, want = read_sim_scene(np, gpu_dir, i), read_sim_scene(np, cpu_dir, i)
+            gaps.append(sim_gap(np, got, want))
+            cams_equal &= all(np.array_equal(got["camera"][k], want["camera"][k])
+                              for k in want["camera"])
+        files = sorted(p.name for p in (Path(gpu_dir) / "0").iterdir())
+        plans = [sc[3] for sc in scenes[:SIM_SCENES]]
+        emit({"phase": "simulate", "device": smi, "scenes": SIM_SCENES,
+              "shape": [SIM_SLICES, 224, 352], "planes": 2000, "nyu_shape": list(NYU_SHAPE),
+              "avg_time_s_per_scene": printed(out, "avg_time"),
+              "wall_s_per_scene": wall / SIM_SCENES,
+              "device_s_per_scene": statistics.mean(device_s),
+              "device_s_per_scene_each": device_s,
+              "profiled_scenes": 4, "profiled_wall_s": pwall,
+              "device_busy_share": busy / pwall, "copy_share": copies / pwall,
+              "cpu_avg_time_s_per_scene": printed(cpu_out, "avg_time"),
+              "layers_max": max(len(p["layers"]) for plan in plans for p in plan),
+              "coc_max": max(abs(c) for plan in plans for p in plan for c, _, _ in p["layers"]),
+              "tf32_after_cli": tf32, "tf32_flag_restored": restored,
+              "render_same_bits_under_tf32_flag": immune, "launches": launched,
+              "gpu_vs_cpu": gaps, "camera_equal": bool(cams_equal), "files": files,
+              "bound": {"u8_share": SIM_U8_SHARE, "rtol": SIM_RTOL, "atol": SIM_ATOL}})
+        check(immune and restored == [True, True], "simulate: the render follows the TF32 flag")
+        check(cams_equal and all(g["u8_share_within_1"] > SIM_U8_SHARE and g["u8_median"] == 0
+                                 and g["depth_over_bound"] <= 1 and g["defocus_over_bound"] <= 1
+                                 for g in gaps), f"simulate on the card against the CPU: {gaps}")
+        check(len(files) == SIM_SLICES + 2, f"simulate wrote {files}")
+
+        # the port's reader and E2E trainer on the port's simulator output
+        recipe = RECIPES["Simulated"]
+        train = SimulatedScenesDataset(gpu_dir, mode="train", seed=0)
+        val = SimulatedScenesDataset(gpu_dir, mode="val")
+        check(len(train) == len(val) == SIM_SCENES, "SimulatedScenesDataset scenes")
+        state = new_train_state(torch, 0, True, dev)
+        step = make_train_step(TRAIN_LR, recipe.loss, e2e=True)
+        keys = ("fs", "depth", "focus_dists", "mask", "fovs")
+        losses, shapes = [], None
+        tk.reset_launches()
+        for i, batch in enumerate(Loader(train, SIM_TRAIN_BATCH, shuffle=True, drop_last=True)):
+            if i == SIM_TRAIN_STEPS:
+                break
+            shapes = {k: list(batch[k].shape) for k in keys}
+            state, logs = step(state, {k: torch.from_numpy(batch[k]).to(dev) for k in keys})
+            losses.append(float(logs["loss"]))
+        torch.cuda.synchronize()
+        step_launches = dict(tk.launches)
+        sample = val[0]
+        outs = make_eval_fn(e2e=True)(state.model, {
+            k: torch.from_numpy(np.asarray(sample[k])[None]).to(dev)
+            for k in ("fs", "focus_dists", "fovs")})
+        torch.cuda.synchronize()
+        val_launches = {k: v - step_launches[k] for k, v in tk.launches.items()}
+        finite = all(bool(torch.isfinite(t).all()) for t in outs)
+    emit({"phase": "simulate_train", "device": smi, "recipe": recipe.name,
+          "batch_shapes": shapes, "val_fs": list(sample["fs"].shape), "losses": losses,
+          "step_launches": step_launches, "val_launches": val_launches,
+          "val_outputs_finite": finite})
+    check(len(losses) == SIM_TRAIN_STEPS and all(np.isfinite(losses)),
+          f"Simulated recipe on the simulator's scenes: losses {losses}")
+    check_launches(step_launches, {}, "simulate_train steps")
+    check_launches(val_launches, E2E_LAUNCHES, "simulate_train validation")
+    check(finite and list(sample["fs"].shape) == [SIM_SLICES, 224, 352, 3],
+          "simulate_train validation forward")
+
+
+FRONT_DOOR = ("eval", "real-scenes", "train", "simulate", "doctor")
+
+
+def phase_front_door(kind: str, smi: str) -> None:
+    """``python -m dffx_torch doctor``, ``--version`` and ``<cmd> --help`` for
+    the five commands, each a process of its own, all started together:
+    every one exits 0, and ``doctor`` names the card and its power limit."""
+    argvs = [["doctor"], ["--version"]] + [[cmd, "--help"] for cmd in FRONT_DOOR]
+    procs = [(argv, subprocess.Popen([sys.executable, "-m", "dffx_torch", *argv], cwd=ROOT,
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+             for argv in argvs]
+    rcs, outs = {}, {}
+    for argv, proc in procs:
+        out, err = proc.communicate(timeout=300)
+        rcs[" ".join(argv)], outs[" ".join(argv)] = proc.returncode, out + err
+    doctor = outs["doctor"].splitlines()
+    power = smi.split(",")[-1].strip()
+    emit({"phase": "front_door", "rcs": rcs, "doctor": doctor})
+    check(all(rc == 0 for rc in rcs.values()), f"front door exit codes {rcs}: {outs}")
+    check(any(kind in ln and power in ln for ln in doctor if "cuda device" in ln),
+          f"doctor does not name {kind} at {power}")
+    check(doctor[-1] == "doctor: environment healthy", "doctor: core checks")
+
+
 def golden_inputs(np):
     """tests/test_golden_regression.py's inputs (seed 7 params, rng 42)."""
     rng = np.random.default_rng(42)
@@ -1244,6 +1488,11 @@ def main() -> int:
     cli_runs = {"eval_cli": phase_eval_cli(torch, np, tk, dev, smi),
                 "real_scenes_cli": phase_real_scenes_cli(torch, np, tk, dev, smi),
                 "train_cli_validation": phase_train_cli(torch, np, tk, dev, smi)}
+
+    # 12. the simulator's command line, its output through the reader and the
+    # E2E trainer, then the front door; no kernel of the port on either path
+    phase_simulate(torch, np, tk, dev, smi)
+    phase_front_door(kind, smi)
 
     emit({"phase": "time", "build_seconds": seconds,
           "run_seconds": time.perf_counter() - t_start, "limit_seconds": 1200})

@@ -2,7 +2,9 @@
 networks in PyTorch: eval forwards with hand-written CUDA kernels for Hopper
 (H100) on the full-resolution focus-measure chain, the alignment feature
 pyramid and the full-resolution motion head, and the train step
-(``dffx_torch.train``) on stock ops.
+(``dffx_torch.train``) on stock ops; ``dffx``'s command lines and the
+thin-lens simulator (``dffx_torch.sim``) that makes the end-to-end network's
+training data, behind one front door (``python -m dffx_torch``).
 
 Layout inside the port is torch's ``(B, C, N, H, W)``; the public forward
 keeps the JAX package's ``(B, N, H, W, 3)`` focal stack and ``(B, N)`` focus

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Timings of dffx_torch's CUDA kernels and forwards on one NVIDIA GPU.
 
-    python3 dffx_torch/bench.py [--root TREE] [--what kernels,mma,stages,serving,train]
+    python3 dffx_torch/bench.py [--root TREE] [--what kernels,mma,stages,serving,train,sim]
                                 [--graph unpacked,packed,...] [--cudnn-benchmark] [--tf32]
 
 Every line it prints is one JSON object with the card's name and power limit
@@ -33,7 +33,13 @@ tree before its redesign, one packed buffer now).
                 shapes the two serving paths give them: each 16 -> 8 deconv as
                 cuDNN runs it, in ``channels_last_3d`` and as a packed conv,
                 the whole stage unpacked and packed, and both EFDs unpacked
-                and packed (``models/packed.py``).
+                and packed (``models/packed.py``);
+* ``sim``       the simulator's render program (``dffx_torch.sim``) on a scene
+                at its command line's size (224 x 352, 10 slices, 2,000
+                planes, the pixel6 profile), its blur as one conv a slice (the
+                library's) and as one grouped conv (here only), in turns:
+                device time per scene, the blur alone, the two against each
+                other, and the profile of the library's program.
 
 ``--graph`` names the graphs that ``stages`` and ``serving`` run, in turns, as a
 list: ``unpacked``; ``packed`` (both EFDs and the full-resolution stage
@@ -53,6 +59,7 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 N, H, W = 10, 384, 384
@@ -452,6 +459,143 @@ def profile_forwards(torch, forward, forwards: int = 3, grad: bool = False) -> d
                                    for k, ms, c in rows[:14]]}
 
 
+#: fp32 FMA outside the tensor cores, one H100 SXM at 700 W (NVIDIA's data sheet):
+#: the simulator's convs run with TF32 off
+FP32_FLOP_PER_S, HBM_BYTES_PER_S = 67e12, 3.35e12
+
+
+def sim_scene(np, seed: int = 0, h: int = 224, w: int = 352):
+    """A NYU-shaped scene at the simulator's size: a smooth BGR image, a
+    smooth depth in [0.1, 1.1] m with an edge, planned (``plan_scene``) with
+    the pixel6 profile at the command line's defaults."""
+    from dffx_torch.sim import simulator as sim
+
+    r = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    image = (127.5 + 127.5 * np.sin(np.stack([5 * xx + c * yy for c in (3, 7, 11)], -1) * 3)
+             ).astype(np.float32)
+    depth = 0.3 + 0.5 * xx + 0.2 * np.cos(4 * yy) + (xx > 0.4) * 0.3
+    depth = 1.0 * (depth - depth.min()) / (depth.max() - depth.min()) + 0.1
+    pvm = 1 / 0.0000014 * 352 / 4080
+    plan, _, _ = sim.plan_scene(depth, profile=sim.DEVICE_PROFILES[1], rng=r, pixel_vs_meter=pvm)
+    return image, depth, depth * pvm, plan
+
+
+def blur_grouped(torch, sim):
+    """The simulator's blur as one grouped conv (the slices as groups, each
+    slice's layers its outputs, the colours as the batch), for measurement
+    against the library's conv a slice."""
+    import torch.nn.functional as F
+
+    def blur(wimg, kernels):
+        s, n_layers, k, _ = kernels.shape
+        out = F.conv2d(sim._reflect_pad(wimg, k // 2), kernels.reshape(s * n_layers, 1, k, k),
+                       groups=s)
+        return torch.clamp(torch.round(out), 0.0, 255.0).view(3, s, n_layers,
+                                                               *wimg.shape[-2:])
+
+    return blur
+
+
+def sim_host_ms(np, torch, sim, image, depth, depth_px, dev, reps: int = 5) -> dict:
+    """Median host milliseconds of a scene's pieces outside the render
+    program, as ``generate_scene`` and the command line run them: the
+    prepass (``plan_scene``: the draws and ``coc_layers`` over 2,000 planes a
+    slice), the kernels and bounds (``_layer_operands``), the operands to the
+    card, the results back, the last slice's depth warp (``warp_2d``), and
+    one scene's files (ten PNGs and two .mat files, on one thread)."""
+    import tempfile
+
+    import cv2
+    import scipy.io as sio
+
+    pvm = 1 / 0.0000014 * 352 / 4080
+    plan, cam, _ = sim.plan_scene(depth, profile=sim.DEVICE_PROFILES[1],
+                                  rng=np.random.default_rng(0), pixel_vs_meter=pvm)
+    ops = sim.scene_operands(image, depth, depth_px, plan, dev)
+    out, disp = sim.render_program(*ops)
+    imgs = out.cpu().numpy().astype(np.uint8)
+
+    def write(root):
+        for i in range(imgs.shape[0]):
+            cv2.imwrite(f"{root}/img{i}.png", imgs[i])
+        sio.savemat(f"{root}/depth.mat", {"depth": depth, "defocus": disp.cpu().numpy()})
+        sio.savemat(f"{root}/camera_param.mat", cam)
+
+    def timed(fn):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    last = plan[-1]
+    with tempfile.TemporaryDirectory() as tmp:
+        return {
+            "plan_scene": timed(lambda: sim.plan_scene(
+                depth, profile=sim.DEVICE_PROFILES[1], rng=np.random.default_rng(0),
+                pixel_vs_meter=pvm)),
+            "layer_operands": timed(lambda: sim._layer_operands([p["layers"] for p in plan])),
+            "scene_operands": timed(lambda: sim.scene_operands(image, depth, depth_px, plan, dev)),
+            "results_to_host": timed(lambda: (out.cpu().numpy().astype(np.uint8),
+                                              disp.cpu().numpy())),
+            "warp_2d_depth": timed(lambda: sim.warp_2d(depth.astype(np.float32), last["fov"],
+                                                       last["beta"], last["gamma"], device=dev)),
+            "write_files": timed(lambda: write(tmp)),
+        }
+
+
+def bench_sim(np, torch, dev, smi, reps):
+    """The render program on one scene, the blur per slice and grouped in
+    turns (per slice, grouped, grouped, per slice): device seconds per scene
+    (``profiling.device_loop_time``), the blur alone, the outputs of the two
+    against each other, the least time for the blur's work, and a profile."""
+    from dffx_torch.sim import simulator as sim
+    from dffx_torch.utils.profiling import device_loop_time
+
+    image, depth, depth_px, plan = sim_scene(np)
+    ops = sim.scene_operands(image, depth, depth_px, plan, dev)
+    kernels = ops[6]
+    s, n_layers, k, _ = kernels.shape
+    h, w = depth.shape
+    per_slice, grouped = sim._blur_layers, blur_grouped(torch, sim)
+    wimg = torch.floor(torch.rand(3, s, h, w, device=dev) * 256)
+    # the work of the blur as the program runs it (bucketed kernels and layers)
+    # and as the scene needs it (each layer's own disc size, no padding rows)
+    macs = 3 * s * n_layers * h * w * k * k
+    need = 3 * h * w * sum(sim._ksize(c) ** 2 for p in plan for c, _, _ in p["layers"])
+    nbytes = 4 * (3 * s * h * w + kernels.numel() + 3 * s * n_layers * h * w)
+    bound = max(2 * need / FP32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    outs, rows = {}, []
+    with torch.inference_mode(), sim._fp32_exact(dev):
+        for name in ("per_slice", "grouped", "grouped", "per_slice"):
+            sim._blur_layers = grouped if name == "grouped" else per_slice
+            try:
+                program_s = device_loop_time(sim.render_program, *ops, iters=reps)
+                blur_s = device_loop_time(sim._blur_layers, wimg, kernels, iters=reps)
+                outs[name] = [t.cpu() for t in sim.render_program(*ops)]
+            finally:
+                sim._blur_layers = per_slice
+            rows.append({"blur": name, "program_ms": program_s * 1e3, "blur_ms": blur_s * 1e3})
+        prof = profile_forwards(torch, lambda: sim.render_program(*ops), forwards=3)
+    diff = (outs["grouped"][0] - outs["per_slice"][0]).abs()
+    host = sim_host_ms(np, torch, sim, image, depth, depth_px, dev)
+    emit({"what": "sim", "device": smi, "shape": [s, h, w], "layers": n_layers, "kernel": k,
+          "layers_per_slice": [len(p["layers"]) for p in plan],
+          "cudnn_benchmark": torch.backends.cudnn.benchmark, "turns": rows,
+          "blur_macs_run": macs, "blur_macs_needed": need, "blur_bound_ms": bound,
+          "bound_by": "operations" if 2 * need / FP32_FLOP_PER_S >= nbytes / HBM_BYTES_PER_S
+          else "bytes",
+          "per_slice_vs_grouped": {"max_abs": float(diff.max()),
+                                   "share_differing": float((diff > 0).float().mean()),
+                                   "disparity_max_abs": float((outs["grouped"][1]
+                                                               - outs["per_slice"][1]).abs()
+                                                              .nan_to_num().max())},
+          "host_ms": host, "profile": prof})
+
+
 def bench_serving(np, torch, dev, smi, graph):
     from dffx_torch.eval import TimedForward
 
@@ -560,7 +704,7 @@ def main() -> int:
     ap.add_argument("--graph", default="unpacked,packed",
                     help=f"stages and serving: the graphs to run, in turns, of {GRAPHS}")
     ap.add_argument("--cudnn-benchmark", action="store_true",
-                    help="pieces, stages, serving and train under "
+                    help="pieces, stages, serving, train and sim under "
                          "torch.backends.cudnn.benchmark = True")
     ap.add_argument("--tf32", action="store_true",
                     help="TF32 for cuDNN's fp32 convs and cuBLAS's fp32 matmuls (PyTorch's "
@@ -603,6 +747,8 @@ def main() -> int:
         bench_pieces(np, torch, dev, smi, ns.reps)
     if "train" in what:
         bench_train(np, torch, dev, smi)
+    if "sim" in what:
+        bench_sim(np, torch, dev, smi, ns.reps)
     for graph in graphs:
         if "stages" in what:
             bench_stages(np, torch, tk, dev, smi, graph)

@@ -10,6 +10,9 @@ axis-separable, so the warp is two per-slice interpolation-matrix products:
 The lattice, flow and matrices are built in fp32 exactly as the JAX package
 builds them and cast to the activation dtype for the two products, which are
 plain ``torch.einsum`` (cuBLAS on the card, as XLA did on the TPU).
+
+``grid_sample_2d`` is ``dffx``'s general gather form for grids that are not
+separable, in ``dffx``'s ``(B, H, W, C)`` layout.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 
 def _lattice(n: int, device) -> torch.Tensor:
@@ -76,3 +80,13 @@ def affine_warp_stack(x: torch.Tensor, fov: torch.Tensor, beta: torch.Tensor,
     pixel shifts, both in x.dtype."""
     y, fx, fy = warp_cf(x.permute(0, 4, 1, 2, 3), fov, beta, gamma)
     return y.permute(0, 2, 3, 4, 1), flow_cf(fx, fy, x.dtype).permute(0, 2, 3, 4, 1)
+
+
+def grid_sample_2d(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """``F.grid_sample(x, grid, align_corners=True, padding_mode='zeros')`` in
+    ``dffx``'s layout: x ``(B, H, W, C)``, grid ``(B, Ho, Wo, 2)`` of
+    normalised coordinates with ``grid[..., 0]`` = x.  Returns ``(B, Ho, Wo,
+    C)`` in x.dtype."""
+    out = F.grid_sample(x.permute(0, 3, 1, 2), grid.to(x.dtype), mode="bilinear",
+                        padding_mode="zeros", align_corners=True)
+    return out.permute(0, 2, 3, 1)

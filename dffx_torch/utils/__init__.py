@@ -1,1 +1,2 @@
-"""dffx_torch.utils — the TensorBoard event writer and the sanitizers' host half."""
+"""dffx_torch.utils — the TensorBoard event writer, the sanitizers' host half,
+profiling helpers (``profiling``) and the environment report (``doctor``)."""

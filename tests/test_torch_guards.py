@@ -10,7 +10,8 @@ import torch
 from dffx_torch.ops import _build
 from dffx_torch.ops import kernels as tk
 
-PKG = pathlib.Path(__file__).resolve().parent.parent / "dffx_torch"
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "dffx_torch"
 FORBIDDEN = {"jax", "jaxlib", "optax", "dffx"}
 
 
@@ -23,9 +24,15 @@ def _imported_roots(path: pathlib.Path):
 
 
 def test_port_imports_no_jax_and_no_dffx():
-    files = sorted(PKG.rglob("*.py"))
-    assert len(files) >= 16 and PKG / "models" / "packed.py" in files
-    bad = {(f.relative_to(PKG).as_posix(), m) for f in files for m in _imported_roots(f)
+    """Every module of the port, ``chip_smoke.py`` (which runs where there is
+    no JAX) and the test helpers it imports (``tests/torch_fixtures.py``)."""
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "tests" / "torch_fixtures.py"]
+    assert len(files) >= 24
+    for new in ("models/packed.py", "sim/simulator.py", "sim/__init__.py", "__main__.py",
+                "utils/doctor.py", "utils/profiling.py"):
+        assert PKG / new in files, new
+    bad = {(f.relative_to(ROOT).as_posix(), m) for f in files for m in _imported_roots(f)
            if m in FORBIDDEN}
     assert not bad, bad
 

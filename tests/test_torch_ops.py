@@ -107,3 +107,46 @@ def test_softplus_argmax_bf16_computes_in_fp32(rng):
     assert got.dtype == torch.bfloat16
     ref = tops.softplus_argmax(c16.float(), torch.from_numpy(fd))
     np.testing.assert_array_equal(got.float().numpy(), ref.bfloat16().float().numpy())
+
+
+def test_ops_namespace_covers_dffx():
+    assert set(jops.__all__) <= set(tops.__all__)
+    assert all(callable(getattr(tops, name)) for name in tops.__all__)
+
+
+@pytest.mark.parametrize("b,h,w,c,ho,wo", [(2, 7, 9, 3, 5, 11), (1, 16, 12, 4, 16, 12)])
+def test_grid_sample_2d(rng, b, h, w, c, ho, wo):
+    """``dffx``'s gather form, grid points out of range included (zeros)."""
+    x = rng.standard_normal((b, h, w, c), dtype=np.float32)
+    grid = rng.uniform(-1.3, 1.3, (b, ho, wo, 2)).astype(np.float32)
+    grid[0, 0, :3] = [[-1.0, -1.0], [1.0, 1.0], [1.0, -1.0]]  # the corners exactly
+    ref = np.asarray(jops.grid_sample_2d(jnp.asarray(x), jnp.asarray(grid)))
+    got = tops.grid_sample_2d(torch.from_numpy(x), torch.from_numpy(grid))
+    assert got.shape == (b, ho, wo, c) and got.dtype == torch.float32
+    assert (np.abs(grid) > 1).any(axis=-1).sum() > 0
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("n_in,n_out,align", [(7, 13, False), (13, 7, False), (5, 9, True),
+                                              (4, 1, True), (1, 6, False), (96, 384, False)])
+def test_bilinear_matrix_bit_equal(n_in, n_out, align):
+    from dffx.ops.resize import bilinear_matrix as jmatrix
+
+    got = tops.bilinear_matrix(n_in, n_out, align)
+    assert got.dtype == np.float32 and not got.flags.writeable
+    np.testing.assert_array_equal(got, jmatrix(n_in, n_out, align))
+
+
+def test_affine_warp_exports_match(rng):
+    x = rng.uniform(-1, 1, (1, 3, 12, 16, 2)).astype(np.float32)
+    fov = np.array([[1.0, 1.03, 0.97]], np.float32)
+    beta = np.array([[0.0, 1.5, -2.0]], np.float32)
+    gamma = np.array([[0.0, -0.5, 0.7]], np.float32)
+    ref, ref_flow = jops.affine_warp_stack(*map(jnp.asarray, (x, fov, beta, gamma)))
+    got, flow = tops.affine_warp_stack(*map(torch.from_numpy, (x, fov, beta, gamma)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
+    np.testing.assert_allclose(flow.numpy(), np.asarray(ref_flow), atol=ATOL)
+    m, f = tops.affine_warp_matrices(torch.from_numpy(fov), torch.from_numpy(beta), 16)
+    jm, jf = jops.affine_warp_matrices(jnp.asarray(fov), jnp.asarray(beta), 16)
+    np.testing.assert_allclose(m.numpy(), np.asarray(jm), atol=1e-6)
+    np.testing.assert_allclose(f.numpy(), np.asarray(jf), atol=1e-6)
