@@ -61,6 +61,31 @@ each and read just after (neither launches any of the five kernels):
   and its power limit), ``--version`` and ``<command> --help`` for the five
   commands, each in a process of its own: all exit 0.
 
+Then several processes, one rank each (``dffx_torch.parallel``; two ranks
+share the one card over gloo, which stages every payload through the host),
+each path with every count at 0 just before it and read just after:
+
+* ``dp_train``: DFFNet's train step on two ranks, batch 4 (2 a rank) of 10 x
+  224 x 224, 3 steps with ``bn_mode="sync"`` and 3 with ``"per_shard"``: the
+  same losses, parameters, buffers and Adam moments on both ranks bit for
+  bit, ``sync``'s first step against one process on the global batch at the
+  train phases' bounds, each step's ms and the bytes each collective moved;
+  then two steps at world size 1 over NCCL, the first against the same;
+* ``dp_train_cli``: ``python -m dffx_torch.train.cli --recipe DDFF`` as two
+  ranks with ``--coordinator 127.0.0.1:<port> --num_processes 2
+  --process_id r --bn_mode per_shard``, two steps: only rank 0 writes
+  ``models/*.ckpt`` and validates;
+* ``spatial``: ``TimedForward(spatial=2)`` (``--spatial 2``) on two ranks,
+  each against the same model whole on its rank (fp32 within 1e-4; bf16 by
+  the serving phases' bound: finite, pred3 in the focus range), DFFNet at
+  10 x 384 x 576 (DDFF-12's padded shape) in fp32 and bf16, every DFFNet kernel once a
+  forward a rank on 224 rows (192 and 16 halo rows on each side); E2E at the
+  same shape (the full- and half-resolution chains split, the
+  quarter-resolution ``rb_of_chain``'s 96 rows run whole) and at 10 x 608 x
+  1088 (608 does not split in 64-row steps: every chain whole); DFFNet with
+  ``--spatial-xla``: no launch.  Per rank the forward ms of both, and the
+  halo, all-gather and host-staged bytes a forward.
+
 The card's installation lacks ``h5py`` and ``imageio``: those phases put
 stand-ins in their place (``HOST_GAPS``, printed as ``host_gaps``).  The
 command lines return nothing: what they compute is read through the hooks of
@@ -77,8 +102,9 @@ stand in the output.  The kernels a forward launches are the same either way.
 Each path's serving run starts with every launch count at 0 and checks the
 counts just after it.  Every phase prints one JSON line and raises on
 failure.  The second-to-last line lists each kernel with its launches in the
-end-to-end serving run (as ``train_launches``, in all train steps: 0, and
-as ``cli_launches``, in each command line's run),
+end-to-end serving run (as ``train_launches``, in all train steps: 0, as
+``cli_launches``, in each command line's run, and as ``spatial_launches``,
+in each ``spatial`` case on rank 0),
 its error against its twin, both times and the bound at the end-to-end path's
 shapes (rb_of_chain: the sum over its three pyramid levels, and each level
 under ``levels``), and for ``fm_conv_bn_relu`` the time of the one PyTorch call
@@ -348,18 +374,22 @@ def fm_conv_library(torch, tk, dev) -> dict:
 
 
 def kernel_entry(name: str, rows: list, launches: int, train_launches: int,
-                 cli_launches: dict, library: dict | None = None) -> dict:
+                 cli_launches: dict, library: dict | None = None,
+                 spatial_launches: dict | None = None) -> dict:
     """One kernel of the result line: its fp32 rows at the end-to-end path's
     shapes summed; a kernel with several (rb_of_chain's three pyramid levels)
     also lists each under ``levels``.  ``launches``: in the end-to-end serving
-    run; ``train_launches``: in every train step; ``cli_launches``: in each
-    command line's measured run (``train_cli``: its validation forwards).  ``bound_by``: what sets the largest
-    row's bound.  ``library_ms``: ``library``'s time where one PyTorch call
+    run; ``train_launches``: in every train step (one process and data
+    parallel); ``cli_launches``: in each command line's measured run
+    (``train_cli`` and ``dp_train_cli``: their validation forwards);
+    ``spatial_launches``: on rank 0 of each ``spatial`` case's timed run.
+    ``bound_by``: what sets the largest row's bound.  ``library_ms``: ``library``'s time where one PyTorch call
     computes the function (``fm_conv_library``), else null (see
     ``bound_ms``)."""
     entry = {"name": name, "route": "cuda", "source": REPLACES[name][0],
              "replaces": REPLACES[name][1], "launches": launches,
              "train_launches": train_launches, "cli_launches": cli_launches,
+             "spatial_launches": spatial_launches,
              "max_abs_err": max(r["max_abs_err"] for r in rows),
              "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
              "bound_ms": sum(r["bound_ms"] for r in rows),
@@ -439,16 +469,19 @@ def serve(torch, tf, reqs, smi, phase) -> int:
     return len(reqs)
 
 
-def train_batch(np, rng, b, n, h, w, e2e: bool) -> dict:
+def train_batch(np, rng, b, n, h, w, e2e: bool, fdt=None) -> dict:
     """A synthetic batch as the train step takes it (numpy): stacks in
-    [-1, 1], depth in the focus range, 80 % of the pixels valid."""
-    batch = {"fs": rng.uniform(-1, 1, (b, n, h, w, 3)).astype(np.float32),
-             "depth": rng.uniform(0.1, 1.5, (b, h, w)).astype(np.float32),
-             "focus_dists": np.tile(np.linspace(0.1, 1.5, n, dtype=np.float32), (b, 1)),
+    [-1, 1], depth in the focus range, 80 % of the pixels valid; its floats
+    in ``fdt`` (default fp32)."""
+    fdt = fdt or np.float32
+    batch = {"fs": rng.uniform(-1, 1, (b, n, h, w, 3)).astype(np.float32).astype(fdt),
+             "depth": rng.uniform(0.1, 1.5, (b, h, w)).astype(np.float32).astype(fdt),
+             "focus_dists": np.tile(np.linspace(0.1, 1.5, n, dtype=np.float32).astype(fdt),
+                                    (b, 1)),
              "mask": rng.random((b, h, w)) > 0.2}
     if e2e:
         batch["fovs"] = (1.0 + np.linspace(0.0, 0.03, n)
-                         + rng.uniform(-0.005, 0.005, (b, n))).astype(np.float32)
+                         + rng.uniform(-0.005, 0.005, (b, n))).astype(np.float32).astype(fdt)
     return batch
 
 
@@ -456,18 +489,26 @@ def on(torch, batch: dict, dev) -> dict:
     return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
 
-def new_train_state(torch, seed: int, e2e: bool, dev):
+def new_train_state(torch, seed: int, e2e: bool, dev, dtype=None):
     from dffx_torch.checkpoint import load_jax_params
     from dffx_torch.models import E2ENetwork, Network, e2e_init_params, init_params
     from dffx_torch.train import create_train_state
 
     net = E2ENetwork() if e2e else Network()
     load_jax_params(net, (e2e_init_params if e2e else init_params)(seed))
-    return create_train_state(net.to(dev), TRAIN_LR)
+    return create_train_state(net.to(device=dev, dtype=dtype), TRAIN_LR)
 
 
 def grads_of(state) -> dict:
-    return {k: p.grad.float().cpu() for k, p in state.model.named_parameters()}
+    """Every gradient on the host, in fp32 (float64 where it is)."""
+    return {k: p.grad.to(torch_wide(p.grad)).cpu() for k, p in state.model.named_parameters()}
+
+
+def torch_wide(t):
+    """fp32, or float64 for a float64 tensor."""
+    import torch
+
+    return torch.promote_types(t.dtype, torch.float32)
 
 
 def grad_gap(got: dict, want: dict) -> tuple:
@@ -936,9 +977,9 @@ def train_cli_data(np) -> dict:
     return split
 
 
-def train_cli_argv(data_root: str, root: str) -> list:
+def train_cli_argv(data_root: str, root: str, steps: int = TRAIN_STEPS) -> list:
     return ["--recipe", "DDFF", "--lr", "1e-4", "--saveroot", root, "--batch_size", "4",
-            "--cpus", "8", "--max_epoch", "1", "--steps-per-epoch", str(TRAIN_STEPS),
+            "--cpus", "8", "--max_epoch", "1", "--steps-per-epoch", str(steps),
             "--data-root", data_root]
 
 
@@ -984,8 +1025,9 @@ def train_cli_child(spec: str) -> int:
 
     cli.ckpt.save_async, cli.ckpt.restore = kept_save, kept_restore
     cli.CUDNN_BENCHMARK = spec["benchmark"]
-    argv = train_cli_argv(spec["data_root"], spec["root"])
+    argv = train_cli_argv(spec["data_root"], spec["root"], spec.get("steps", TRAIN_STEPS))
     argv += ["--load_epoch", "-1"] if spec["resume"] else []
+    argv += spec.get("flags", [])
     h5 = str(Path(spec["data_root"]) / "DDFF" / "ddff-dataset-trainval.h5")
     tk.reset_launches()
     with stand_ins({h5: train_cli_data(np)}, []), recording_train(cli) as ran:
@@ -993,7 +1035,8 @@ def train_cli_child(spec: str) -> int:
     torch.cuda.synchronize()
     torch.save({"out": out, "launches": dict(tk.launches), "losses": ran["losses"],
                 "step_seconds": ran["step_seconds"], "val_seconds": ran["val_seconds"],
-                "val_pred3": ran["val_pred3"], "step": ran["state"].step, "snapshot": snapshot},
+                "val_pred3": ran["val_pred3"], "step": ran["state"].step, "snapshot": snapshot,
+                "params": {k: v.detach().cpu() for k, v in ran["state"].model.state_dict().items()}},
                Path(spec["root"]) / "run.pt")
     return 0
 
@@ -1304,6 +1347,598 @@ def phase_front_door(kind: str, smi: str) -> None:
     check(doctor[-1] == "doctor: environment healthy", "doctor: core checks")
 
 
+# ---------------------------------------------------------------------------
+# several processes: data-parallel training and spatial serving
+# ---------------------------------------------------------------------------
+
+#: data-parallel training: the global batch over 2 ranks that share the card
+#: (gloo, host-staged), DP_STEPS steps in each BatchNorm mode
+DP_RANKS, DP_STEPS, DP_SEED = 2, 3, 41
+#: spatial serving over 2 ranks on the card: (name, E2E?, H x W, dtypes, kernels);
+#: DDFF-12's padded test shape, then the real-scene shape, then --spatial-xla
+SPATIAL_RANKS, SPATIAL_REPS, SPATIAL_SEED = 2, 5, 43
+SPATIAL_CASES = (("dffnet", False, (384, 576), ("float32", "bfloat16"), True),
+                 ("e2e", True, (384, 576), ("float32", "bfloat16"), True),
+                 ("e2e", True, (EH, EW), ("float32",), True),
+                 ("dffnet_spatial_xla", False, (384, 576), ("float32",), False))
+#: the kernels' chains and the height each one runs at in an H x W forward
+CHAIN_HEIGHTS = {"fm_conv_bn_relu": (1,), "rb2d_residual": (1,), "srd_attention_residual": (1,),
+                 "rb_of_chain": (1, 2, 4), "motion_head_conv_chain": (1,)}
+HALO_ROWS = 16  # dffx_torch.ops.halo.HALO
+#: a sharded chain against the same chain whole on the same input, and the
+#: sharded forward against the whole forward with the same edge rows patched
+#: in: a share of the largest value (bf16 keeps 8 bits)
+SITE_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+#: bf16: the sharded forward's RMS gap to the whole fp32 forward, at most this
+#: many times the whole bf16 forward's
+RMS_RATIO = 1.1
+
+
+def shard_rows(h: int, s: int) -> int:
+    """The rows a kernel launches on for a chain of height h over s ranks: a
+    shard and its halo rows where h divides by 32 s, else the whole height."""
+    return h // s + 2 * HALO_ROWS if h % (32 * s) == 0 else h
+
+
+def split_sites(h: int, e2e: bool) -> int:
+    """The chain sites of an H x W forward whose height splits over
+    SPATIAL_RANKS: the FM chain, and in E2E also the three ``rb_of_chain``
+    levels (H, H/2, H/4) and the motion head."""
+    heights = [h] + ([h, h // 2, h // 4, h] if e2e else [])
+    return sum(x % (32 * SPATIAL_RANKS) == 0 for x in heights)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def start_ranks(task: str, world: int, tmp: str, timeout: float = 600, **spec) -> list:
+    """``task`` on ``world`` ranks, each a process of its own on the card
+    (``--rank-child``), all started together; returns each rank's result.
+    Every rank's group times out well before ``timeout``."""
+    procs = []
+    for rank in range(world):
+        child = {"task": task, "world": world, "rank": rank, "out": tmp,
+                 "coordinator": f"file://{tmp}/rdv_{task}_{world}", **spec}
+        procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                       "--rank-child", json.dumps(child)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    check(all(p.returncode == 0 for p in procs),
+          f"{task} ranks: " + "\n".join(f"rank {r} rc {p.returncode}: {o[-3000:]}"
+                                        for r, (p, o) in enumerate(zip(procs, outs))))
+    import torch
+
+    return [torch.load(Path(tmp) / f"{task}_{world}_{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def watch_kernel_rows(tk) -> dict:
+    """Each kernel's input heights, launch by launch, from the module sites that
+    call the wrappers (``layers``, ``alignnet``); clear the lists to start."""
+    from dffx_torch.models import alignnet, layers
+
+    rows = {name: [] for name in REPLACES}
+    for module in (layers, alignnet):
+        for name in REPLACES:
+            fn = getattr(module, name, None)
+            if fn is None:
+                continue
+
+            def watched(x, *args, _fn=fn, _name=name, **kw):
+                rows[_name].append(int(x.shape[3]))
+                return _fn(x, *args, **kw)
+
+            setattr(module, name, watched)
+    return rows
+
+
+def rank_child(spec: str) -> int:
+    """One rank (``--rank-child``): joins the group of ``spec["coordinator"]``
+    on the card, runs ``RANK_TASKS[spec["task"]]`` and saves its result."""
+    import datetime
+
+    import numpy as np
+    import torch
+
+    sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
+    from dffx_torch.parallel import distributed
+
+    spec = json.loads(spec)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = distributed.initialize(spec["coordinator"], spec["world"], spec["rank"],
+                                 timeout=datetime.timedelta(seconds=300))
+    try:
+        result = RANK_TASKS[spec["task"]](torch, np, dev, spec)
+        result["backend"] = torch.distributed.get_backend()
+    finally:
+        distributed.shutdown()
+    torch.save(result, Path(spec["out"]) / f"{spec['task']}_{spec['world']}_{spec['rank']}.pt")
+    return 0
+
+
+def rank_dp_train(torch, np, dev, spec) -> dict:
+    """DFFNet's train step on this rank's rows of a global batch of DP_BATCH
+    (``shard_batch``), for each ``(mode, steps)`` of ``spec["modes"]``: a
+    ``bn_mode``, or ``sync_deterministic`` (``sync`` with cuDNN's
+    deterministic algorithms), or ``sync_float64`` (``sync`` with the model,
+    the batch and the compute in float64).  Per step the host ms
+    (synchronised), the logs and the bytes each collective moved; the first
+    step's gradients and statistics; the state after the last."""
+    from dffx_torch.ops import kernels as tk
+    from dffx_torch.parallel import distributed, make_mesh, shard_batch
+    from dffx_torch.train import LossConfig, make_train_step
+
+    mesh = make_mesh()
+    runs = {}
+    for mode, n_steps in spec["modes"]:
+        torch.backends.cudnn.deterministic = mode.endswith("_deterministic")
+        dtype = torch.float64 if mode.endswith("_float64") else torch.float32
+        state = new_train_state(torch, 0, False, dev, dtype)
+        step = make_train_step(TRAIN_LR, LossConfig(), compute_dtype=dtype, mesh=mesh,
+                               bn_mode=mode.split("_deterministic")[0].split("_float64")[0])
+        rng = np.random.default_rng(DP_SEED)
+        steps = []
+        tk.reset_launches()
+        for i in range(n_steps):
+            local = shard_batch(train_batch(np, rng, TB, TN, TH, TW, False,
+                                            np.float64 if dtype == torch.float64 else None),
+                                mesh, dev)
+            distributed.reset_traffic()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            state, logs = step(state, local)
+            logs = {k: float(v) for k, v in logs.items()}
+            torch.cuda.synchronize(dev)
+            rec = {"ms": (time.perf_counter() - t0) * 1e3, "logs": logs,
+                   "traffic": dict(distributed.traffic)}
+            if i == 0:  # copies: on the CPU .cpu() would hand back the live tensors
+                rec.update(grads={k: v.clone() for k, v in grads_of(state).items()},
+                           stats={k: v.clone() for k, v in stats_of(state).items()})
+            steps.append(rec)
+        runs[mode] = {"steps": steps, "launches": dict(tk.launches),
+                      "state": {k: v.cpu() for k, v in state.model.state_dict().items()},
+                      "adam": [{k: v.cpu() for k, v in state.optimizer.state[p].items()}
+                               for p in state.model.parameters()]}
+    torch.backends.cudnn.deterministic = False
+    # the collectives alone, on this rank's card: the step's gradient
+    # all-reduce and one BN layer's statistics (2 x 32 fp32)
+    group = mesh.group("data")
+    sizes = {"grads": sum(p.numel() for p in state.model.parameters()), "bn_stats": 64}
+    runs["collective_ms"] = {}
+    for what, n in sizes.items():
+        buf = torch.zeros(n, device=dev)
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            distributed.all_reduce_(buf, group)
+            torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        runs["collective_ms"][what] = statistics.median(times[1:])
+    return runs
+
+
+def probe_chain_sites(torch) -> dict:
+    """Wraps ``chain_site`` (in ``layers`` and ``alignnet``) for the probe
+    forwards that follow the counted ones.  ``probe["mode"]`` None passes
+    through.  ``"compare"`` (under a sharded forward) records, at each chain
+    whose height splits, the sharded output against the same chain run whole
+    on the same input (the kernels, or with ``kernels=False`` the stock
+    layers): the largest gap in the edge rows (``bleed + EDGE_MARGIN`` at each
+    true edge, which the stock layers patch), in the other rows, and against
+    the whole output with those edge rows patched.  ``"patch"`` (under a whole
+    forward) gives each such chain's output the stock layers' edge rows,
+    computed on the strips ``halo_sharded_chain`` uses: the whole forward then
+    does at every row what the sharded one does."""
+    from dffx_torch.models import alignnet, layers
+    from dffx_torch.ops.halo import EDGE_MARGIN, HALO
+
+    probe = {"mode": None, "kernels": True, "sites": []}
+    site = layers.chain_site
+
+    def probed(x, kernel_fn, stock_fn, *, bleed):
+        y = site(x, kernel_fn, stock_fn, bleed=bleed)
+        h = x.shape[3]
+        if probe["mode"] is None or h % (32 * SPATIAL_RANKS):
+            return y
+        e = bleed + EDGE_MARGIN
+        strip = -(-(e + HALO) // 32) * 32
+
+        def patched(t):
+            t = t.clone()
+            t[:, :, :, :e] = stock_fn(x[:, :, :, :strip])[:, :, :, :e]
+            t[:, :, :, h - e:] = stock_fn(x[:, :, :, h - strip:])[:, :, :, strip - e:]
+            return t
+
+        if probe["mode"] == "patch":
+            return patched(y)
+        whole = (kernel_fn if probe["kernels"] else stock_fn)(x)
+        gap = (y.float() - whole.float()).abs().amax(dim=(0, 1, 2, 4))  # a row each
+        probe["sites"].append({
+            "site": f"{kernel_fn.__qualname__.split('.')[0]}_{h}", "bleed": bleed,
+            "edge_gap": float(torch.cat([gap[:e], gap[h - e:]]).max()),
+            "interior_gap": float(gap[e:h - e].max()),
+            "patched_gap": float((y.float() - patched(whole).float()).abs().max()),
+            "whole_abs_max": float(whole.float().abs().max())})
+        return y
+
+    layers.chain_site = alignnet.chain_site = probed
+    return probe
+
+
+def rank_spatial(torch, np, dev, spec) -> dict:
+    """The SPATIAL_CASES through ``TimedForward(spatial=2)`` against the same
+    model whole (``TimedForward()``) on this rank: per case and dtype the
+    forward ms of both (CUDA events, SPATIAL_REPS after one each), the
+    sharded run's launches, kernel input heights and bytes moved a forward,
+    and the largest gap to the whole forward on each output.  Then, outside
+    the counts, the probe forwards (``probe_chain_sites``): each chain's
+    sharded output against the chain whole on the same input, and the
+    outputs against the whole forward with the same edge rows patched in,
+    and against the whole forward run again; for bf16 the RMS gap of the
+    sharded and of the whole forward to the whole fp32 forward."""
+    from dffx_torch.eval import TimedForward, load_params_auto
+    from dffx_torch.ops import kernels as tk
+    from dffx_torch.parallel import distributed
+
+    rows = watch_kernel_rows(tk)
+    probe = probe_chain_sites(torch)
+    rng = np.random.default_rng(SPATIAL_SEED)
+    fd = (1 / np.linspace(0.2, 3.0, 10, dtype=np.float32))[None]
+    fovs = np.linspace(1.0, 1.02, 10, dtype=np.float32)[None]
+
+    def rms(a, b):
+        return float((a - b).square().mean().sqrt())
+
+    cases = []
+    for name, e2e, (h, w), dtypes, kernels in SPATIAL_CASES:
+        model = load_params_auto(0, device=dev, e2e=e2e)
+        args = [rng.uniform(-1, 1, (1, 10, h, w, 3)).astype(np.float32), fd]
+        args += [fovs] if e2e else []
+        ref32 = None
+        for dtype in dtypes:
+            dt = getattr(torch, dtype)
+            whole = TimedForward(model, dtype=dt)
+            sharded = TimedForward(model, dtype=dt, spatial=SPATIAL_RANKS, spatial_pallas=kernels)
+            ref = [o.float() for o in whole(*args)]
+            ref32 = ref if dtype == "float32" else ref32
+            sharded(*args)
+            whole.total = whole.count = 0
+            for _ in range(SPATIAL_REPS):
+                whole(*args)
+            sharded.total = sharded.count = 0
+            tk.reset_launches()
+            distributed.reset_traffic()
+            for v in rows.values():
+                v.clear()
+            for _ in range(SPATIAL_REPS):
+                got = sharded(*args)
+            torch.cuda.synchronize(dev)
+            got = [o.float() for o in got]
+            # the serving phases' bound (check_depth): finite, pred3 in the focus range
+            p3, slack = got[3], (2.0 ** -8 if dtype == "bfloat16" else 1e-6) * fd.max()
+            case = {
+                "finite": all(bool(torch.isfinite(o).all()) for o in got),
+                "pred3_in_fd_range": bool((p3 >= fd.min() - slack).all()
+                                          and (p3 <= fd.max() + slack).all()),
+                "case": name, "e2e": e2e, "shape": [1, 10, h, w], "dtype": dtype,
+                "kernels": kernels, "whole_ms": whole.avg_time * 1e3,
+                "sharded_ms": sharded.avg_time * 1e3, "launches": dict(tk.launches),
+                "rows": {k: sorted(set(v)) for k, v in rows.items() if v},
+                "bytes_a_forward": {k: v / SPATIAL_REPS for k, v in distributed.traffic.items()},
+                "max_abs_err": [float((g - r).abs().max()) for g, r in zip(got, ref)],
+                "ref_abs_max": [float(r.abs().max()) for r in ref]}
+            probe.update(mode="compare", kernels=kernels, sites=[])
+            sharded(*args)
+            case["sites"] = probe["sites"]
+            if kernels:
+                probe["mode"] = "patch"
+                patched = [o.float() for o in whole(*args)]
+                case["vs_patched_max_abs_err"] = [float((g - p).abs().max())
+                                                  for g, p in zip(got, patched)]
+            probe["mode"] = None
+            case["whole_again_max_abs_err"] = [float((o.float() - r).abs().max())
+                                               for o, r in zip(whole(*args), ref)]
+            if dtype != "float32":
+                case["rms_vs_fp32"] = {"whole": [rms(r, r32) for r, r32 in zip(ref, ref32)],
+                                       "sharded": [rms(g, r32) for g, r32 in zip(got, ref32)]}
+            cases.append(case)
+    return {"cases": cases, "collective_ms": spatial_collectives(torch, dev)}
+
+
+def spatial_collectives(torch, dev) -> dict:
+    """The FM chain's two collectives alone at 10 x 384 x 576 fp32 over the
+    spatial group: its halo exchange (16 rows of the 3-channel input with
+    each neighbour) and its all-gather (this rank's 192 rows of the 8-channel
+    output); median ms of 5 after one."""
+    from dffx_torch.ops.halo import HALO, halo_rows
+    from dffx_torch.parallel import distributed, make_mesh
+
+    mesh = make_mesh(data=1, spatial=SPATIAL_RANKS)
+    group = mesh.group("spatial")
+    x = torch.zeros(1, 3, 10, 384 // SPATIAL_RANKS, 576, device=dev)
+    y = torch.zeros(1, 8, 10, 384 // SPATIAL_RANKS, 576, device=dev)
+    calls = {"halo_fm_input": lambda: halo_rows(x, mesh, HALO),
+             "all_gather_fm_output": lambda: distributed.all_gather_cat(y, 3, group)}
+    out = {}
+    for name, call in calls.items():
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = statistics.median(times[1:])
+    return out
+
+
+RANK_TASKS = {"dp_train": rank_dp_train, "spatial": rank_spatial}
+
+
+#: the data-parallel step against one process in float64, where the order of
+#: the sums costs ~1e-16 a sum: the 1e-5 the fp32 step cannot hold on the card
+DP_F64_RTOL = 1e-5
+
+
+def phase_dp_train(torch, np, tk, dev, smi) -> int:
+    """``make_train_step(bn_mode=..., mesh=make_mesh())`` on DP_RANKS ranks
+    that share the card (gloo; the payloads staged through the host): DFFNet
+    at batch 4 (2 a rank) of 10 x 224 x 224, DP_STEPS steps in ``sync``, in
+    ``per_shard`` and in ``sync`` with cuDNN's deterministic algorithms, one
+    ``sync`` step in float64; then two ``sync`` steps at world size 1, over
+    NCCL.  Checks: every rank logs the same losses and ends with the same
+    parameters, buffers and Adam moments, bit for bit; the first ``sync``
+    step (and NCCL's, and the deterministic one) against one process on the
+    global batch in the same mode at the train phases' bounds; the float64
+    step against one process in float64 within DP_F64_RTOL (loss,
+    statistics, each gradient against its tensor's largest element, L2); no
+    kernel launches.  Also reported: one process against itself, run again
+    on the same state and batch, with cuDNN's default algorithms and with
+    its deterministic ones.  Returns the launches (0)."""
+    from dffx_torch.train import LossConfig, make_train_step
+
+    modes = [("sync", DP_STEPS), ("per_shard", DP_STEPS), ("sync_deterministic", DP_STEPS),
+             ("sync_float64", 1)]
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = start_ranks("dp_train", DP_RANKS, tmp, modes=modes)
+        (nccl,) = start_ranks("dp_train", 1, tmp, modes=[("sync", 2)])
+    launches = 0
+
+    def one_process(deterministic: bool = False, dtype=torch.float32) -> dict:
+        """One step in one process on the global batch from the fresh state."""
+        nonlocal launches
+        rng = np.random.default_rng(DP_SEED)
+        fdt = np.float64 if dtype == torch.float64 else None
+        batch = on(torch, train_batch(np, rng, TB, TN, TH, TW, False, fdt), dev)
+        torch.backends.cudnn.deterministic = deterministic
+        one = new_train_state(torch, 0, False, dev, dtype)
+        tk.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one, logs = make_train_step(TRAIN_LR, LossConfig(), compute_dtype=dtype)(one, batch)
+        loss = float(logs["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        torch.backends.cudnn.deterministic = False
+        launches += sum(tk.launches.values())
+        return {"logs": {"loss": loss}, "grads": grads_of(one), "stats": stats_of(one), "ms": ms}
+
+    ones = {"sync": [one_process(), one_process()],
+            "sync_deterministic": [one_process(True), one_process(True)],
+            "sync_float64": [one_process(dtype=torch.float64)]}
+
+    def against(first: dict, want: dict) -> dict:
+        g_over, g_worst, g_l2 = grad_gap(first["grads"], want["grads"])
+        s_over, counts = stats_gap(first["stats"], want["stats"])
+        s_rel = max(float((first["stats"][k] - w).abs().max() / w.abs().max().clamp(min=1e-30))
+                    for k, w in want["stats"].items() if not k.endswith("num_batches_tracked"))
+        loss = want["logs"]["loss"]
+        return {"loss_rel_err": abs(first["logs"]["loss"] - loss) / abs(loss),
+                "grad_over_bound": g_over, "grad_worst_over_max": g_worst, "grad_rel_l2": g_l2,
+                "stats_over_bound": s_over, "stats_worst_rel": s_rel, "counts_equal": counts}
+
+    def agree(ok: dict) -> bool:
+        return (ok["loss_rel_err"] <= 1e-5 and ok["grad_over_bound"] <= 1
+                and ok["grad_rel_l2"] <= GRAD_L2 and ok["stats_over_bound"] <= 1
+                and ok["counts_equal"])
+
+    def agree_f64(ok: dict) -> bool:
+        return (max(ok["loss_rel_err"], ok["grad_worst_over_max"], ok["grad_rel_l2"],
+                    ok["stats_worst_rel"]) <= DP_F64_RTOL and ok["counts_equal"])
+
+    gaps = {"one_process_again": against(ones["sync"][1], ones["sync"][0]),
+            "one_process_again_deterministic": against(ones["sync_deterministic"][1],
+                                                       ones["sync_deterministic"][0])}
+    for mode, _ in modes:
+        runs = [r[mode] for r in ranks]
+        same_logs = all(a["logs"] == b["logs"] for a, b in zip(runs[0]["steps"], runs[1]["steps"]))
+        same_state = all(torch.equal(runs[0]["state"][k], runs[1]["state"][k])
+                         for k in runs[0]["state"])
+        same_adam = all(torch.equal(a[k], b[k]) for a, b in zip(runs[0]["adam"], runs[1]["adam"])
+                        for k in a)
+        launches += sum(sum(r["launches"].values()) for r in runs)
+        row = {"phase": "dp_train", "device": smi, "mode": mode, "ranks": DP_RANKS,
+               "backend": ranks[0]["backend"], "batch": TB, "batch_a_rank": TB // DP_RANKS,
+               "shape": [TN, TH, TW], "ms_steps": [[s["ms"] for s in r["steps"]] for r in runs],
+               "ms_per_step": statistics.median(s["ms"] for r in runs
+                                                for s in r["steps"][1:] or r["steps"]),
+               "losses": [s["logs"]["loss"] for s in runs[0]["steps"]],
+               "bytes_a_step": runs[0]["steps"][-1]["traffic"],
+               "collective_alone_ms": ranks[0]["collective_ms"], "same_logs": same_logs,
+               "same_state": same_state, "same_adam": same_adam,
+               "launches": [r["launches"] for r in runs]}
+        if mode in ones:
+            row["one_process_ms"] = ones[mode][0]["ms"]
+            row["vs_one_process"] = gaps[mode] = against(runs[0]["steps"][0], ones[mode][0])
+        emit(row)
+        check(same_logs and same_state and same_adam, f"dp_train {mode}: ranks differ")
+        check(ranks[0]["backend"] == "gloo", "dp_train: two ranks on one card need gloo")
+        check(all(np.isfinite(row["losses"])), f"dp_train {mode} losses {row['losses']}")
+        if mode in ones:
+            check((agree_f64 if mode == "sync_float64" else agree)(row["vs_one_process"]),
+                  f"dp_train {mode} against one process: {row}")
+    emit({"phase": "dp_train_gaps", "device": smi, "batch": TB, "shape": [TN, TH, TW],
+          "f64_rtol": DP_F64_RTOL, "gaps": gaps})
+    ok = against(nccl["sync"]["steps"][0], ones["sync"][0])
+    emit({"phase": "dp_train_nccl", "device": smi, "backend": nccl["backend"], "world": 1,
+          "batch": TB, "ms_steps": [st["ms"] for st in nccl["sync"]["steps"]], "vs_one_process": ok,
+          "bytes_a_step": nccl["sync"]["steps"][0]["traffic"],
+          "collective_alone_ms": nccl["collective_ms"]})
+    check(nccl["backend"] == "nccl" and agree(ok), f"dp_train at world size 1 over NCCL: {ok}")
+    check(launches == 0, f"dp_train: {launches} kernel launches in train steps")
+    return launches
+
+
+def phase_dp_train_cli(torch, np, tk, dev, smi) -> dict:
+    """``python -m dffx_torch.train.cli --recipe DDFF`` as DP_RANKS ranks on
+    the card with ``dffx``'s flags (``--coordinator 127.0.0.1:<port>
+    --num_processes 2 --process_id r --bn_mode per_shard``), batch 4 (2 a
+    rank), two epochs of one step, each rank with its own ``--saveroot``:
+    only rank 0 writes ``models/*.ckpt`` and validates (one launch of each
+    DFFNet kernel a validation forward, 4 of them); both ranks log the same
+    losses and end with the same weights.  Returns rank 0's launches."""
+    port = free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for rank in range(DP_RANKS):
+            flags = ["--coordinator", f"127.0.0.1:{port}", "--num_processes", str(DP_RANKS),
+                     "--process_id", str(rank), "--bn_mode", "per_shard"]
+            spec = {"data_root": tmp, "root": f"{tmp}/rank{rank}/", "benchmark": True,
+                    "resume": False, "steps": 1, "flags": flags}
+            procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                           "--train-cli-child", json.dumps(spec)],
+                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True))
+        outs = []
+        try:
+            outs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        check(all(p.returncode == 0 for p in procs),
+              "dp_train_cli: " + "\n".join(o[-3000:] for o in outs))
+        runs = [torch.load(Path(tmp) / f"rank{r}" / "run.pt", weights_only=False)
+                for r in range(DP_RANKS)]
+        ckpts = [sorted(p.name for p in (Path(tmp) / f"rank{r}" / "models").glob("*"))
+                 for r in range(DP_RANKS)]
+    same = all(torch.equal(runs[0]["params"][k], runs[1]["params"][k]) for k in runs[0]["params"])
+    want = {k: v * 2 * VAL_STACKS for k, v in DFFNET_LAUNCHES.items()}
+    emit({"phase": "dp_train_cli", "device": smi, "ranks": DP_RANKS, "bn_mode": "per_shard",
+          "batch": 4, "models": ckpts, "losses": [r["losses"] for r in runs],
+          "ms_steps": [[s * 1e3 for s in r["step_seconds"]] for r in runs],
+          "same_params": same, "launches": [r["launches"] for r in runs],
+          "rank0_prints": runs[0]["out"].splitlines()[:3], "rank1_prints": runs[1]["out"]})
+    check(ckpts[0] == ["1.ckpt"] and ckpts[1] == [], f"dp_train_cli checkpoints {ckpts}")
+    check(runs[0]["losses"] == runs[1]["losses"] and len(runs[0]["losses"]) == 2
+          and all(np.isfinite(runs[0]["losses"])) and same, "dp_train_cli: ranks differ")
+    check(runs[1]["out"] == "" and "backend gloo" in runs[0]["out"], "dp_train_cli prints")
+    check_launches(runs[0]["launches"], want, "dp_train_cli rank 0")
+    check_launches(runs[1]["launches"], {}, "dp_train_cli rank 1")
+    return runs[0]["launches"]
+
+
+def phase_spatial(torch, np, tk, dev, smi) -> dict:
+    """``TimedForward(spatial=2)`` (``--spatial 2``) on SPATIAL_RANKS ranks that
+    share the card, per SPATIAL_CASES.  Checks, on every rank, after every
+    case's row is printed: every kernel launched once a forward a rank
+    (``rb_of_chain`` three times) on the rows ``shard_rows`` gives, none under
+    ``--spatial-xla``; the outputs finite, pred3 in the focus range (the
+    serving phases' ``check_depth``); each chain whose height splits, against
+    the same chain whole on the same input, within SITE_RTOL of its largest
+    value in its edge rows and in the rest (the edge rows are the stock
+    layers', the rest the kernels'); the outputs against the whole forward
+    with the same edge rows patched in within SITE_RTOL of each output's
+    largest value (the sharding adds nothing else); in fp32 the outputs
+    against the whole forward within 1e-5 of each output's largest value
+    (``--spatial-xla``, whose chains are the stock layers, within FP32_ATOL,
+    the port's kernels-to-stock bound); in bf16 the outputs' RMS gap to the
+    whole fp32 forward within RMS_RATIO of the whole bf16 forward's.  Each
+    output's bound adds the whole forward's gap to itself, run again.
+    Returns, per kernel, its launches on rank 0 per case."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = start_ranks("spatial", SPATIAL_RANKS, tmp)
+    per_kernel = {name: {} for name in REPLACES}
+    for i, case in enumerate(ranks[0]["cases"]):
+        emit({"phase": "spatial", "device": smi, "case": case["case"], "shape": case["shape"],
+              "dtype": case["dtype"], "ranks": SPATIAL_RANKS, "backend": ranks[0]["backend"],
+              "kernels": case["kernels"], "whole_ms": [r["cases"][i]["whole_ms"] for r in ranks],
+              "sharded_ms": [r["cases"][i]["sharded_ms"] for r in ranks],
+              "launches_a_rank": case["launches"], "rows": case["rows"],
+              "bytes_a_forward": case["bytes_a_forward"],
+              "max_abs_err": [r["cases"][i]["max_abs_err"] for r in ranks],
+              "ref_abs_max": case["ref_abs_max"],
+              "vs_patched_max_abs_err": [r["cases"][i].get("vs_patched_max_abs_err")
+                                         for r in ranks],
+              "whole_again_max_abs_err": [r["cases"][i]["whole_again_max_abs_err"]
+                                          for r in ranks],
+              "rms_vs_fp32": [r["cases"][i].get("rms_vs_fp32") for r in ranks],
+              "sites": [r["cases"][i]["sites"] for r in ranks],
+              "site_rtol": SITE_RTOL[case["dtype"]],
+              "atol": FP32_ATOL if case["dtype"] == "float32" else None,
+              "finite": case["finite"], "pred3_in_fd_range": case["pred3_in_fd_range"]})
+    emit({"phase": "spatial_collectives", "device": smi, "ranks": SPATIAL_RANKS,
+          "backend": ranks[0]["backend"], "shape": [1, 10, 384, 576], "dtype": "float32",
+          "ms_alone": [r["collective_ms"] for r in ranks]})
+    for i, case in enumerate(ranks[0]["cases"]):
+        h = case["shape"][2]
+        want = ((E2E_LAUNCHES if case["e2e"] else DFFNET_LAUNCHES) if case["kernels"] else {})
+        want_rows = {k: sorted({shard_rows(h // f, SPATIAL_RANKS) for f in CHAIN_HEIGHTS[k]})
+                     for k in want}
+        rtol = SITE_RTOL[case["dtype"]]
+        for r, rank in enumerate(ranks):
+            c = rank["cases"][i]
+            what = f"spatial {c['case']} {c['dtype']} rank {r}"
+            check_launches(c["launches"], {k: v * SPATIAL_REPS for k, v in want.items()}, what)
+            check(c["rows"] == want_rows, f"{what}: rows {c['rows']} != {want_rows}")
+            check(c["finite"] and c["pred3_in_fd_range"], f"{what}: not finite or out of range")
+            check(len(c["sites"]) == split_sites(h, c["e2e"]),
+                  f"{what}: sites {[s['site'] for s in c['sites']]}")
+            for site in c["sites"]:
+                lim = rtol * site["whole_abs_max"]
+                check(max(site["edge_gap"], site["interior_gap"], site["patched_gap"]) <= lim,
+                      f"{what}: chain {site} beyond {lim}")
+            # an output's bound: a share of its largest value beyond the gap
+            # of the whole forward to itself, run again (fp32 cuDNN is not
+            # deterministic; bf16 repeats itself bit for bit)
+            lims = [rtol * m + a for m, a in zip(c["ref_abs_max"], c["whole_again_max_abs_err"])]
+            if case["kernels"]:
+                check(all(g <= lim for g, lim in zip(c["vs_patched_max_abs_err"], lims)),
+                      f"{what}: against the patched whole forward {c['vs_patched_max_abs_err']}")
+            if c["dtype"] == "float32":
+                # the kernels' sharded forward against the whole one within
+                # those bounds; --spatial-xla's stock chains against the
+                # kernels' whole forward at the port's kernels-to-stock bound
+                lims = lims if c["kernels"] else [FP32_ATOL] * len(lims)
+                check(all(g <= lim for g, lim in zip(c["max_abs_err"], lims)),
+                      f"{what}: {c['max_abs_err']} beyond {lims}")
+            else:
+                rms = c["rms_vs_fp32"]
+                check(all(s <= RMS_RATIO * w for s, w in zip(rms["sharded"], rms["whole"])),
+                      f"{what}: further from fp32 than the whole forward: {rms}")
+        if case["dtype"] == "float32":
+            key = f"{case['case']}_{'x'.join(map(str, case['shape'][2:]))}"
+            for name in REPLACES:
+                per_kernel[name][key] = case["launches"][name]
+    check(all(any(v.values()) for v in per_kernel.values()), "spatial: a kernel never launched")
+    return per_kernel
+
+
 def golden_inputs(np):
     """tests/test_golden_regression.py's inputs (seed 7 params, rng 42)."""
     rng = np.random.default_rng(42)
@@ -1494,11 +2129,21 @@ def main() -> int:
     phase_simulate(torch, np, tk, dev, smi)
     phase_front_door(kind, smi)
 
+    # 13. several processes on the card, each path with every count at 0 just
+    # before it and read just after: data-parallel steps (no kernel), the
+    # train command line as two ranks, and spatial serving (all five kernels
+    # on each rank's rows)
+    dp_launches = phase_dp_train(torch, np, tk, dev, smi)
+    cli_runs["dp_train_cli_validation"] = phase_dp_train_cli(torch, np, tk, dev, smi)
+    spatial = phase_spatial(torch, np, tk, dev, smi)
+
     emit({"phase": "time", "build_seconds": seconds,
           "run_seconds": time.perf_counter() - t_start, "limit_seconds": 1200})
-    emit({"kernels": [kernel_entry(name, path_rows[name], served[name], train_launches,
+    emit({"kernels": [kernel_entry(name, path_rows[name], served[name],
+                                   train_launches + dp_launches,
                                    {path: got[name] for path, got in cli_runs.items()},
-                                   library if name == "fm_conv_bn_relu" else None)
+                                   library if name == "fm_conv_bn_relu" else None,
+                                   spatial[name])
                       for name in REPLACES]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
@@ -1508,4 +2153,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--train-cli-child"]:
         sys.exit(train_cli_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--rank-child"]:
+        sys.exit(rank_child(sys.argv[2]))
     sys.exit(main())

@@ -4,7 +4,9 @@ networks in PyTorch: eval forwards with hand-written CUDA kernels for Hopper
 pyramid and the full-resolution motion head, and the train step
 (``dffx_torch.train``) on stock ops; ``dffx``'s command lines and the
 thin-lens simulator (``dffx_torch.sim``) that makes the end-to-end network's
-training data, behind one front door (``python -m dffx_torch``).
+training data, behind one front door (``python -m dffx_torch``); over several
+processes, one rank each (``dffx_torch.parallel``), data-parallel training
+and H-sharded serving of the kernels' chains.
 
 Layout inside the port is torch's ``(B, C, N, H, W)``; the public forward
 keeps the JAX package's ``(B, N, H, W, 3)`` focal stack and ``(B, N)`` focus

@@ -39,7 +39,15 @@ tree before its redesign, one packed buffer now).
                 planes, the pixel6 profile), its blur as one conv a slice (the
                 library's) and as one grouped conv (here only), in turns:
                 device time per scene, the blur alone, the two against each
-                other, and the profile of the library's program.
+                other, and the profile of the library's program;
+* ``parallel``  several processes, a card each, under ``torchrun
+                --nproc_per_node S`` (``python -m torch.distributed.run``):
+                DFFNet's data-parallel train step (global batch 2 S, ``sync``
+                and ``per_shard``) against one process at that batch and at a
+                rank's, then ``--spatial S`` forwards against whole ones
+                (DFFNet at 10 x 384 x 576 and 10 x 768 x 1152, E2E at
+                384 x 576; fp32 and bf16); rank 0 prints.  Runs alone: the
+                other measurements are for one card.
 
 ``--graph`` names the graphs that ``stages`` and ``serving`` run, in turns, as a
 list: ``unpacked``; ``packed`` (both EFDs and the full-resolution stage
@@ -72,6 +80,9 @@ PACKERS = {"fm_conv_bn_relu": "fm_conv_params", "rb2d_residual": "rb2d_params",
 
 
 GRAPHS = ("unpacked", "deconvs", "tail", "packed")
+#: ``parallel``: the train crop, and the (E2E?, H x W) of the spatial forwards
+PARALLEL_TRAIN_SHAPE = (10, 224, 224)
+PARALLEL_SPATIAL_CASES = ((False, (384, 576)), (False, (768, 1152)), (True, (384, 576)))
 
 
 def lowered_deconv(deconv):
@@ -694,6 +705,111 @@ def bench_pieces(np, torch, dev, smi, reps):
         torch.cuda.empty_cache()
 
 
+def _params_digest(torch, model) -> int:
+    """A 63-bit digest of every parameter's and buffer's bytes, to tell whether
+    two ranks hold the same bits."""
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=8)
+    for t in model.state_dict().values():
+        h.update(t.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    return int.from_bytes(h.digest(), "little") >> 1
+
+
+def bench_parallel(np, torch, smi):
+    """Several processes, a card each (launch under ``torchrun
+    --nproc_per_node S``): DFFNet's train step with the global batch 2 S of
+    10 x 224 x 224 over the S ranks, ``sync`` and ``per_shard``, against one
+    process on one card at the same global batch and at a rank's (2); then
+    ``TimedForward(spatial=S)`` against the same forward whole on each rank's
+    card.  Rank 0 prints; every check runs on every rank."""
+    import torch.distributed as dist
+
+    from dffx_torch.eval import TimedForward, load_params_auto
+    from dffx_torch.parallel import distributed, make_mesh, shard_batch
+    from dffx_torch.train import LossConfig, create_train_state, make_train_step
+
+    dev = distributed.initialize()
+    world, rank = distributed.process_count(), distributed.process_index()
+    mesh = make_mesh()
+
+    def show(obj):
+        if rank == 0:
+            emit({**obj, "device": smi, "ranks": world, "backend": dist.get_backend()})
+
+    def step_ms(step, state, batches) -> list:
+        times = []
+        for batch in batches:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            state, logs = step(state, batch)
+            float(logs["loss"])
+            torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times
+
+    rng = np.random.default_rng(5)
+    (n, h, w), per_rank, steps = PARALLEL_TRAIN_SHAPE, 2, 7
+    host = [{"fs": rng.uniform(-1, 1, (per_rank * world, n, h, w, 3)).astype(np.float32),
+             "depth": rng.uniform(0.1, 1.5, (per_rank * world, h, w)).astype(np.float32),
+             "focus_dists": np.tile(np.linspace(0.1, 1.5, n, dtype=np.float32),
+                                    (per_rank * world, 1)),
+             "mask": rng.random((per_rank * world, h, w)) > 0.2} for _ in range(steps)]
+    for mode in ("sync", "per_shard"):
+        state = create_train_state(load_params_auto(0, device=dev), 1e-3)
+        step = make_train_step(1e-3, LossConfig(), bn_mode=mode, mesh=mesh)
+        distributed.reset_traffic()
+        times = step_ms(step, state, [shard_batch(b, mesh, dev) for b in host])
+        digests = torch.tensor([_params_digest(torch, state.model)], device=dev)
+        every = [torch.zeros_like(digests) for _ in range(world)]
+        dist.all_gather(every, digests)
+        same = len({int(d) for d in every}) == 1
+        show({"what": "parallel_train", "mode": mode, "batch": per_rank * world,
+              "batch_a_rank": per_rank, "shape": [n, h, w], "ms_steps": times,
+              "ms_per_step": statistics.median(times[2:]),
+              "bytes_a_step": {k: v / steps for k, v in distributed.traffic.items()},
+              "same_bits_on_every_rank": same,
+              "cudnn_benchmark": torch.backends.cudnn.benchmark})
+        if not same:
+            raise RuntimeError(f"parallel_train {mode}: ranks differ")
+    # one process a card: the same global batch, and a rank's; every rank runs
+    # it on its own card at once (``create_train_state`` broadcasts)
+    for b in (per_rank * world, per_rank):
+        state = create_train_state(load_params_auto(0, device=dev), 1e-3)
+        step = make_train_step(1e-3, LossConfig())
+        times = step_ms(step, state, [{k: torch.from_numpy(v[:b]).to(dev)
+                                       for k, v in hb.items()} for hb in host])
+        show({"what": "parallel_train_one_process", "batch": b, "shape": [n, h, w],
+              "ms_steps": times, "ms_per_step": statistics.median(times[2:])})
+
+    fd = (1 / np.linspace(0.2, 3.0, 10, dtype=np.float32))[None]
+    fovs = np.linspace(1.0, 1.03, 10, dtype=np.float32)[None]
+    for e2e, (h, w) in PARALLEL_SPATIAL_CASES:
+        net = load_params_auto(0, device=dev, e2e=e2e)
+        args = [rng.uniform(-1, 1, (1, 10, h, w, 3)).astype(np.float32), fd]
+        args += [fovs] if e2e else []
+        for dtype in (torch.float32, torch.bfloat16):
+            whole = TimedForward(net, dtype=dtype)
+            sharded = TimedForward(net, dtype=dtype, spatial=world)
+            outs = []
+            for tf in (whole, sharded):
+                for i in range(2 + 8):
+                    if i == 2:
+                        tf.total, tf.count = 0.0, 0
+                    out = tf(*args)
+                outs.append([o.float() for o in out])
+            distributed.reset_traffic()
+            sharded(*args)
+            err = max(float((a - b).abs().max()) for a, b in zip(*outs))
+            show({"what": "parallel_spatial", "model": "e2e" if e2e else "dffnet",
+                  "dtype": str(dtype).split(".")[1], "shape": [10, h, w],
+                  "whole_ms": whole.avg_time * 1e3, "sharded_ms": sharded.avg_time * 1e3,
+                  "bytes_a_forward": dict(distributed.traffic), "max_abs_err": err})
+            if dtype == torch.float32 and err > 1e-4:
+                raise RuntimeError(f"parallel_spatial fp32: {err} from the whole forward")
+    distributed.shutdown()
+
+
 def main() -> int:
     here = Path(__file__).resolve().parents[1]
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -727,6 +843,11 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     torch.backends.cudnn.allow_tf32 = ns.tf32
     torch.backends.cuda.matmul.allow_tf32 = ns.tf32
+    what = ns.what.split(",")
+    if "parallel" in what:  # before any other CUDA call: each rank takes its card
+        torch.backends.cudnn.benchmark = ns.cudnn_benchmark
+        bench_parallel(np, torch, smi)
+        return 0
     dev = torch.device("cuda", 0)
     _, seconds, log = _build.build()
     lib = _build.library()
@@ -734,7 +855,6 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "ptxas": [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln or "Compiling entry" in ln]})
-    what = ns.what.split(",")
     if "kernels" in what:
         bench_kernels(np, torch, tk, lib, dev, smi, ns.reps,
                       tuple(k for k in ns.only.split(",") if k))

@@ -1,9 +1,11 @@
 """Host-side input pipeline: threaded decode into batches, and a prefetch that
 copies each batch to the device while the previous one is being used.
 
-The port's copy of ``dffx/data/pipeline.py``.  ``Loader`` is the same (one
-process: ``dffx``'s ``process_id`` / ``process_count`` sharding belongs with
-data-parallel training, which the port does not have yet).  ``device_prefetch``
+The port's copy of ``dffx/data/pipeline.py``.  ``Loader`` is the same, with
+``dffx``'s process sharding: under data-parallel training (one process a
+rank, ``dffx_torch.parallel``) every rank shuffles with the same seed and
+decodes only its contiguous ``batch_size / process_count`` rows of each
+global batch.  ``device_prefetch``
 replaces ``jax.device_put`` with the copy the reference's
 ``DataLoader(pin_memory=True)`` makes possible (`train_code_DDFF.py:69-70`):
 a producer thread pins each batch and copies it with ``non_blocking=True`` on a
@@ -40,13 +42,23 @@ class Loader:
         num_threads: int = 4,
         seed: int = 0,
         lookahead: int = 4,
+        process_id: int = 0,
+        process_count: int = 1,
     ):
+        """``batch_size`` is the GLOBAL batch.  Under multi-process data
+        parallelism each process constructs the identical shuffled order (same
+        seed) and loads only its contiguous ``batch_size / process_count``
+        slice of every batch — sample-index sharding, no cross-process IO."""
+        if process_count > 1:
+            assert batch_size % process_count == 0, (batch_size, process_count)
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.num_threads = num_threads
         self.lookahead = lookahead
+        self.process_id = process_id
+        self.process_count = process_count
         self._rng = np.random.default_rng(seed)
 
     def __len__(self):
@@ -63,6 +75,15 @@ class Loader:
         ]
         if self.drop_last:
             batches = [b for b in batches if len(b) == self.batch_size]
+        if self.process_count > 1:
+            # every batch must be full so that the processes' slices line up
+            # (partial trailing batches dropped)
+            local = self.batch_size // self.process_count
+            batches = [
+                b[self.process_id * local : (self.process_id + 1) * local]
+                for b in batches
+                if len(b) == self.batch_size
+            ]
 
         with ThreadPoolExecutor(max_workers=self.num_threads) as pool:
             futs = queue.Queue()

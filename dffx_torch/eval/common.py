@@ -1,6 +1,7 @@
 """Serving utilities: weights from a reference ``.pth``, a ``dffx`` ``.ckpt``
 or a seed, a timed eval forward with the reference's ``AVG_time``
-semantics, the device of the command lines, and the jet depth JPEGs."""
+semantics (on one rank, or H-sharded over ``spatial`` ranks), the device of
+the command lines, and the jet depth JPEGs."""
 
 from __future__ import annotations
 
@@ -15,7 +16,9 @@ from torch import nn
 from dffx_torch.checkpoint import load_dffx_checkpoint, load_jax_params, load_torch_checkpoint
 from dffx_torch.data.native import require
 from dffx_torch.models import E2ENetwork, Network, e2e_init_params, init_params
+from dffx_torch.models.layers import spatial_serving
 from dffx_torch.models.packed import PACKED_DEFAULT
+from dffx_torch.parallel import distributed, make_mesh
 
 
 def load_params_auto(source: Union[str, int], *, device="cuda", e2e: bool = False,
@@ -49,14 +52,48 @@ class TimedForward:
 
     ``avg_time`` is seconds per sample, as the reference's ``AVG_time``: with a
     batch of B, one call adds B samples.  Inputs after the focus distances
-    (``E2ENetwork``'s ``fovs``) go to the model as fp32 tensors."""
+    (``E2ENetwork``'s ``fovs``) go to the model as fp32 tensors.
 
-    def __init__(self, model: nn.Module, *, dtype: torch.dtype = torch.float32):
+    ``spatial > 1`` serves each forward over ``spatial`` processes, one rank
+    each (``dffx_torch.parallel``; the process group must hold exactly that
+    many): every rank holds the whole model and the whole stack, runs the
+    kernels' chains on its rows of H behind one halo exchange
+    (``layers.spatial_serving``, ``ops/halo.py``), rebuilds each chain's
+    output with one all-gather, and runs the rest of the forward whole.
+    ``spatial_pallas``: the chains run the kernels (the default on the card;
+    on the CPU the default is the stock layers) or, ``False``
+    (``--spatial-xla``), their stock layers, so that no kernel launches.
+
+    Only the chains split: every rank runs the rest of the forward whole and
+    holds the whole model and stack, so ``spatial > 1`` saves no memory and
+    was slower than one card at every shape measured (``PERF.md``; ROADMAP
+    queue 1 item 10 would shard every stage)."""
+
+    def __init__(self, model: nn.Module, *, dtype: torch.dtype = torch.float32,
+                 spatial: int = 1, spatial_pallas: Optional[bool] = None):
         self.model = model.eval()
         self.dtype = dtype
         self.device = next(model.parameters()).device
         self.total = 0.0
         self.count = 0
+        self._spatial = None
+        if spatial > 1:
+            if distributed.process_count() != spatial:
+                raise ValueError(
+                    f"--spatial {spatial} runs one process a rank and needs {spatial} of "
+                    f"them, this has {distributed.process_count()}; launch with "
+                    f"torchrun --nproc_per_node {spatial} -m dffx_torch.eval.test "
+                    f"--spatial {spatial} ...")
+            if spatial_pallas is None:
+                spatial_pallas = self.device.type == "cuda"
+            self._spatial = (make_mesh(data=1, spatial=spatial), bool(spatial_pallas))
+
+    def _forward(self, fs, rest):
+        if self._spatial is None:
+            return self.model(fs, *rest)
+        mesh, kernels = self._spatial
+        with spatial_serving(mesh, kernels=kernels):
+            return self.model(fs, *rest)
 
     def __call__(self, fs, focus_dists, *extra):
         fs = torch.as_tensor(fs).to(self.device, self.dtype)
@@ -66,13 +103,13 @@ class TimedForward:
                 stream = torch.cuda.current_stream(self.device)
                 start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                 start.record(stream)
-                outs = self.model(fs, *rest)
+                outs = self._forward(fs, rest)
                 end.record(stream)
                 end.synchronize()
                 seconds = start.elapsed_time(end) / 1e3
             else:
                 t0 = time.perf_counter()
-                outs = self.model(fs, *rest)
+                outs = self._forward(fs, rest)
                 seconds = time.perf_counter() - t0
         self.total += seconds
         self.count += int(fs.shape[0])
@@ -106,8 +143,9 @@ def checkpoint_or_seed(path: Optional[str], *, allow_random: bool) -> Union[str,
     if path and os.path.exists(path):
         return path
     if allow_random:
-        print(f"[dffx_torch] checkpoint {path!r} not found — using random init "
-              "(--allow-random-init)")
+        if distributed.is_primary():
+            print(f"[dffx_torch] checkpoint {path!r} not found — using random init "
+                  "(--allow-random-init)")
         return 0
     raise FileNotFoundError(
         f"checkpoint {path!r} not found; pass --checkpoint or --allow-random-init")

@@ -6,11 +6,18 @@ depth JPEG.
     python -m dffx_torch.eval.real_scenes [--data-root Datasets/]
         [--checkpoint check_point.pth] [--out test/] [--dtype fp32|bf16]
         [--allow-random-init] [--device cuda|cpu]
+        [--spatial S [--spatial-pallas | --spatial-xla]]
 
 The forward runs on ``--device`` (default ``cuda``; without a card the command
-raises, and ``--device cpu`` runs it on the CPU).  Not ported: ``--spatial``,
-``--spatial-pallas`` and ``--spatial-xla`` (the H-sharded multi-device
-forward, which waits for the port of ``dffx/ops/halo.py``), and ``dffx``'s
+raises, and ``--device cpu`` runs it on the CPU).  ``--spatial S`` serves
+each forward over S processes, one rank each, as ``dffx_torch.eval.test``
+does: ``torchrun --nproc_per_node S -m dffx_torch.eval.real_scenes --spatial
+S ...``; the kernels' chains run on each rank's rows (``--spatial-pallas``,
+the default on the card) or as their stock layers (``--spatial-xla``), and a
+chain whose height does not divide by ``32 * S`` (every chain at the
+real-scene shape 608 x 1088 with S = 2) runs whole on every rank.  Rank 0
+alone writes the PNGs and the JPEG and prints.  ``--spatial`` saves no
+memory and is slower than one card (``PERF.md``).  Not ported: ``dffx``'s
 persistent compilation cache, which has no counterpart in PyTorch's eager
 forward.
 """
@@ -32,6 +39,8 @@ from dffx_torch.eval.common import (
     load_params_auto,
     save_jet,
 )
+from dffx_torch.eval.test import add_spatial_flags, spatial_choice
+from dffx_torch.parallel import distributed
 
 USER = "python -m dffx_torch.eval.real_scenes"
 
@@ -45,18 +54,31 @@ def main(argv=None):
     parser.add_argument("--allow-random-init", action="store_true")
     parser.add_argument("--device", type=str, default="cuda",
                         help="where the forward runs; 'cpu' only when asked")
+    add_spatial_flags(parser)
     args = parser.parse_args(argv)
+    spatial_pallas = spatial_choice(parser, args)
 
-    device = cli_device(args.device)
+    device = distributed.initialize(device=cli_device(args.device))
+    try:
+        _run(args, device, spatial_pallas)
+    finally:
+        distributed.shutdown()
+
+
+def _run(args, device, spatial_pallas) -> None:
     cv2 = require("cv2", f"the warped PNGs of {USER}")
     source = checkpoint_or_seed(args.checkpoint, allow_random=args.allow_random_init)
     dtype = torch.float32 if args.dtype == "fp32" else torch.bfloat16
-    fwd = TimedForward(load_params_auto(source, device=device, e2e=True), dtype=dtype)
+    fwd = TimedForward(load_params_auto(source, device=device, e2e=True), dtype=dtype,
+                       spatial=args.spatial, spatial_pallas=spatial_pallas)
     dataset = RealScenesDataset(root=args.data_root)
+    primary = distributed.is_primary()
 
     for idx in range(len(dataset)):
         sample = dataset[idx]
         outs = fwd(sample["fs"][None], sample["focus_dists"][None], sample["fovs"][None])
+        if not primary:
+            continue
         depth = outs[3].float().cpu().numpy()[0]
         warped = outs[4].float().cpu().numpy()[0]  # (N, H, W, 3)
         h, w = sample["unpadded"]
@@ -70,7 +92,8 @@ def main(argv=None):
         dmin, dmax = float(depth.min()), float(depth.max())
         norm = (depth - dmin) / max(dmax - dmin, 1e-12)
         save_jet(os.path.join(args.out, "depth", f"{idx}.jpg"), norm[:h, :w], USER)
-    print("AVG_time:", fwd.avg_time)
+    if primary:
+        print("AVG_time:", fwd.avg_time)
 
 
 if __name__ == "__main__":

@@ -4,7 +4,7 @@
     python -m dffx_torch.eval.test --dataset DDFF [--data-root Datasets/]
         [--results-root Results_test/] [--checkpoint path.pth|path.ckpt]
         [--dtype fp32|bf16] [--allow-random-init] [--batch_size 8] [--cpus 4]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--spatial S [--spatial-pallas | --spatial-xla]]
 
 Same dataset dispatch, constants, metric prints (including the FlyingThings3D
 second pass over DefocusNet), jet-colormap depth JPEGs (``Depth/{idx}.jpg``)
@@ -14,10 +14,21 @@ decoded by the ``Loader``'s threads, copied to the card ahead of use
 forward runs on ``--device`` (default ``cuda``; without a card the command
 raises, and ``--device cpu`` runs it on the CPU).
 
-Not ported: ``--spatial``, ``--spatial-pallas`` and ``--spatial-xla`` (the
-H-sharded multi-device forward, which waits for the port of
-``dffx/ops/halo.py``), and ``dffx``'s persistent compilation cache, which has
-no counterpart in PyTorch's eager forward.
+``--spatial S`` serves each forward over S processes, one rank each, which
+run the kernels' chains on their rows of H behind one halo exchange and the
+rest of the forward whole (``TimedForward``, ``dffx_torch/ops/halo.py``):
+
+    torchrun --nproc_per_node 2 -m dffx_torch.eval.test --spatial 2 --dataset DDFF ...
+
+(or ``DFFX_COORDINATOR`` / ``DFFX_NUM_PROCESSES`` / ``DFFX_PROCESS_ID`` in
+each rank's environment).  ``--spatial-pallas`` runs the kernels on the
+shards (the default on the card), ``--spatial-xla`` their stock layers.
+Rank 0 alone writes results and prints.  Every rank runs the rest of the
+forward whole, so ``--spatial`` saves no memory and was slower than one card
+at every shape measured (``PERF.md``): it is not a way to serve faster.
+
+Not ported: ``dffx``'s persistent compilation cache, which has no
+counterpart in PyTorch's eager forward.
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ from dffx_torch.eval.common import (
     load_params_auto,
     save_jet,
 )
+from dffx_torch.parallel import distributed
 
 USER = "python -m dffx_torch.eval.test"
 METRIC_NAMES = [
@@ -88,8 +100,12 @@ def iter_preds(fwd: TimedForward, dataset, *, batch_size=1, num_threads=4):
             idx += 1
 
 
+def _silent(*args, **kwargs) -> None:
+    """``print`` and ``save_jet`` on the ranks other than 0."""
+
+
 def run_masked_eval(fwd, dataset, *, save_root, min_depth, max_depth, crop=True,
-                    batch_size=1, num_threads=4):
+                    batch_size=1, num_threads=4, primary=True):
     sums = {name: 0.0 for name, _ in METRIC_NAMES}
     acc = {f"Avg_accuracy_{k}": 0.0 for k in (1, 2, 3)}
     n = 0
@@ -99,7 +115,7 @@ def run_masked_eval(fwd, dataset, *, save_root, min_depth, max_depth, crop=True,
         if crop:
             h, w = sample["unpadded"]
             pred = pred[:h, :w]
-        save_jet(
+        (save_jet if primary else _silent)(
             os.path.join(save_root, "Depth", f"{idx}.jpg"),
             (pred - min_depth) / (max_depth - min_depth), USER,
         )
@@ -108,10 +124,11 @@ def run_masked_eval(fwd, dataset, *, save_root, min_depth, max_depth, crop=True,
         for k in (1, 2, 3):
             acc[f"Avg_accuracy_{k}"] += M.mask_accuracy_k(pred, gt, k, mask)
         n += 1
+    say = print if primary else _silent
     for name, _ in METRIC_NAMES:
-        print(f"{name} : ", sums[name] / n)
+        say(f"{name} : ", sums[name] / n)
     for k in (1, 2, 3):
-        print(f"Avg_accuracy_{k} : ", acc[f"Avg_accuracy_{k}"] / n)
+        say(f"Avg_accuracy_{k} : ", acc[f"Avg_accuracy_{k}"] / n)
     return n
 
 
@@ -131,9 +148,47 @@ def main(argv=None):
     parser.add_argument("--cpus", type=int, default=4, help="decoder threads")
     parser.add_argument("--device", type=str, default="cuda",
                         help="where the forward runs; 'cpu' only when asked")
+    add_spatial_flags(parser)
     args = parser.parse_args(argv)
+    spatial_pallas = spatial_choice(parser, args)
 
-    device = cli_device(args.device)
+    device = distributed.initialize(device=cli_device(args.device))
+    try:
+        _evaluate(args, device, spatial_pallas)
+    finally:
+        distributed.shutdown()
+
+
+def add_spatial_flags(parser: argparse.ArgumentParser) -> None:
+    """``dffx``'s ``--spatial``, ``--spatial-pallas`` and ``--spatial-xla``."""
+    parser.add_argument("--spatial", type=int, default=1,
+                        help="shard each forward's H axis over this many processes, "
+                             "one rank each (torchrun --nproc_per_node S): the "
+                             "kernels' chains run on each rank's rows behind one "
+                             "halo exchange, the rest of the forward whole; it saves "
+                             "no memory and was slower than one card at every "
+                             "measured shape, so it is not a way to serve faster")
+    parser.add_argument("--spatial-pallas", action="store_true",
+                        help="with --spatial: run the kernels on each rank's rows "
+                             "(the default on the card; needs H %% (32*spatial) "
+                             "== 0 at a chain, which otherwise runs whole)")
+    parser.add_argument("--spatial-xla", action="store_true",
+                        help="with --spatial: run the chains' stock layers in place "
+                             "of the kernels (no kernel launches)")
+
+
+def spatial_choice(parser: argparse.ArgumentParser, args):
+    """``TimedForward``'s ``spatial_pallas`` from the flags: True, False or None
+    (the default); both flags at once is ``dffx``'s error."""
+    if args.spatial_pallas and args.spatial_xla:
+        parser.error("--spatial-pallas and --spatial-xla are mutually exclusive")
+    return True if args.spatial_pallas else (False if args.spatial_xla else None)
+
+
+def _evaluate(args, device, spatial_pallas) -> None:
+    primary = distributed.is_primary()
+    say = print if primary else _silent
+    jet = save_jet if primary else _silent
     dtype = torch.float32 if args.dtype == "fp32" else torch.bfloat16
     droot = args.data_root
     bs, cpus = args.batch_size, args.cpus
@@ -141,23 +196,24 @@ def main(argv=None):
     def make_fwd(root):
         path = args.checkpoint or os.path.join(root, "check_point.pth")
         source = checkpoint_or_seed(path, allow_random=args.allow_random_init)
-        return TimedForward(load_params_auto(source, device=device), dtype=dtype)
+        return TimedForward(load_params_auto(source, device=device), dtype=dtype,
+                            spatial=args.spatial, spatial_pallas=spatial_pallas)
 
     if args.dataset == "DefocusNet":
         root = os.path.join(args.results_root, "DefocusNet/")
         fwd = make_fwd(root)
         dataset = DefocusNetDataset(root=os.path.join(droot, "fs_6/"), mode="test")
         run_masked_eval(fwd, dataset, save_root=root, min_depth=0.1, max_depth=1.5,
-                        crop=False, batch_size=bs, num_threads=cpus)
-        print("AVG_time:", fwd.avg_time)
+                        crop=False, batch_size=bs, num_threads=cpus, primary=primary)
+        say("AVG_time:", fwd.avg_time)
 
     elif args.dataset == "4D_Light_Field":
         root = os.path.join(args.results_root, "4D_Light_Field/")
         fwd = make_fwd(root)
         dataset = HCIDataset(h5_path=os.path.join(droot, "HCI/HCI_FS_trainval.h5"), split="val")
         run_masked_eval(fwd, dataset, save_root=root, min_depth=-2.5, max_depth=2.5,
-                        crop=False, batch_size=bs, num_threads=cpus)
-        print("AVG_time:", fwd.avg_time)
+                        crop=False, batch_size=bs, num_threads=cpus, primary=primary)
+        say("AVG_time:", fwd.avg_time)
 
     elif args.dataset == "DDFF":
         root = os.path.join(args.results_root, "DDFF/")
@@ -172,12 +228,13 @@ def main(argv=None):
                                              num_threads=cpus):
             pred = pred[: dataset.HEIGHT, : dataset.WIDTH]
             preds.append(pred)
-            save_jet(
+            jet(
                 os.path.join(root, "Depth", f"{idx}.jpg"),
                 (pred - min_depth) / (max_depth - min_depth), USER,
             )
-        print("AVG_time:", fwd.avg_time)
-        np.save(os.path.join(root, "predictions.npy"), np.stack(preds))
+        say("AVG_time:", fwd.avg_time)
+        if primary:
+            np.save(os.path.join(root, "predictions.npy"), np.stack(preds))
 
     elif args.dataset == "Smartphone":
         root = os.path.join(args.results_root, "Smartphone/")
@@ -192,16 +249,16 @@ def main(argv=None):
             gt, mask, conf = sample["depth"], sample["mask"], sample["conf"]
             valid = gt[conf == 1.0]
             max_depth, min_depth = np.max(valid), np.min(valid)
-            save_jet(
+            jet(
                 os.path.join(root, "Depth", f"{idx}.jpg"),
                 (pred - min_depth) / (max_depth - min_depth), USER,
             )
             avg_mse += M.mask_mse_w_conf(pred, gt, conf, mask)
             avg_mae += M.mask_mae_w_conf(pred, gt, conf, mask)
             n += 1
-        print("Avg_mse: ", avg_mse / n)
-        print("Avg_mae: ", avg_mae / n)
-        print("AVG_time:", fwd.avg_time)
+        say("Avg_mse: ", avg_mse / n)
+        say("Avg_mae: ", avg_mae / n)
+        say("AVG_time:", fwd.avg_time)
 
     elif args.dataset == "FlyingThings3D":
         root = os.path.join(args.results_root, "FlyingThings3D/")
@@ -213,15 +270,15 @@ def main(argv=None):
             fwd, dataset, save_root=os.path.join(root, "Middlebury/"),
             min_depth=10, max_depth=60,
             # path-list scenes have per-scene shapes — stay sample-at-a-time
-            batch_size=1,
+            batch_size=1, primary=primary,
         )
-        print("AVG_time:", fwd.avg_time)
+        say("AVG_time:", fwd.avg_time)
         # second pass over DefocusNet with range [0.1, 1.5] (`test.py:182-241`)
         dataset2 = DefocusNetDataset(root=os.path.join(droot, "fs_6/"), mode="test")
         run_masked_eval(
             fwd, dataset2, save_root=os.path.join(root, "DefocusNet/"),
             min_depth=0.1, max_depth=1.5, crop=False,
-            batch_size=bs, num_threads=cpus,
+            batch_size=bs, num_threads=cpus, primary=primary,
         )
     else:
         raise SystemExit(f"unknown --dataset {args.dataset!r}")

@@ -12,7 +12,9 @@ per forward: the full-resolution pair and the second block of each strided
 level), and the full-resolution conv3 motion head through
 ``motion_head_conv_chain``.  The strided first blocks of the lower levels and
 the two lower-resolution heads run on stock ops, as the JAX package leaves
-them to XLA.  In training mode (``.train()``) every level and head runs on
+them to XLA.  Under ``layers.spatial_serving`` both kernels' chains run
+H-sharded where their height splits (``layers.chain_site``).  In training
+mode (``.train()``) every level and head runs on
 stock ops, as ``dffx`` under ``Ctx.train``, and the gradient reaches the
 motion through the warp's interpolation matrices; ``remat`` recomputes the
 pyramid levels and the warp + head blocks in the backward
@@ -30,7 +32,8 @@ import torch
 from torch import nn
 
 from dffx_torch.models.dffnet import DFFNet
-from dffx_torch.models.layers import Conv3d, ConvBN3d, ckpt_stage, init_module_params
+from dffx_torch.models.layers import (Conv3d, ConvBN3d, chain_site, ckpt_stage,
+                                     init_module_params)
 from dffx_torch.models.packed import PACKED_DEFAULT
 from dffx_torch.ops.kernels import (ParamCache, motion_head_conv_chain, motion_head_params,
                                     rb_of_chain, rb_of_chain_params)
@@ -68,9 +71,9 @@ class ResnetBlock2dOF(nn.Module):
 
 class OFLevel(nn.Sequential):
     """One pyramid level (``OF_feature``, ``OF_feature1``, ``OF_feature2``): two blocks.
-    In eval mode its stride-1 blocks run as one ``rb_of_chain``; a strided
-    first block runs on stock ops before it.  In training mode both blocks
-    run on stock ops."""
+    In eval mode its stride-1 blocks run as one ``rb_of_chain`` (``chain_site``,
+    bleed 2 a block); a strided first block runs on stock ops before it.  In
+    training mode both blocks run on stock ops."""
 
     def __init__(self, cin, cout, stride):
         super().__init__(ResnetBlock2dOF(cin, cout, stride), ResnetBlock2dOF(cout, cout))
@@ -81,10 +84,20 @@ class OFLevel(nn.Sequential):
             return super().forward(x)
         first, second = self
         if first.stride == 1:
-            blocks = [first.chain_args(), second.chain_args()]
+            chain = (first, second)
         else:
-            x, blocks = first(x), [second.chain_args()]
-        return rb_of_chain(x, blocks, params=self._chain_params(x, blocks))
+            x, chain = first(x), (second,)
+        blocks = [block.chain_args() for block in chain]
+
+        def kernel(t):
+            return rb_of_chain(t, blocks, params=self._chain_params(t, blocks))
+
+        def stock(t):
+            for block in chain:
+                t = block(t)
+            return t
+
+        return chain_site(x, kernel, stock, bleed=2 * len(chain))
 
 
 class MotionHead(nn.Sequential):
@@ -110,7 +123,11 @@ class MotionHead(nn.Sequential):
             args = (self[0][0].weight, self[0][1].fused_affine(),
                     self[2][0].weight, self[2][1].fused_affine(),
                     self[4][0].weight, self[4][1].fused_affine(), self[6].weight, self[6].bias)
-            y = motion_head_conv_chain(volume, *args, params=self._chain_params(volume, *args))
+
+            def kernel(t):
+                return motion_head_conv_chain(t, *args, params=self._chain_params(t, *args))
+
+            y = chain_site(volume, kernel, super().forward, bleed=3)
         else:
             y = super().forward(volume)
         return adaptive_avg_pool_focus(y, N_MOTION)[:, :, :, 0, 0].transpose(1, 2)

@@ -11,6 +11,12 @@ training mode (``.train()``) BN takes batch statistics and updates the running
 ones, and every module runs on stock ops, as ``dffx`` under ``Ctx.train``
 (the kernels have no backward).  Activations are ``(B, C, N, H, W)``.
 
+Two context variables reach the layers from the caller, as ``dffx``'s
+``Ctx`` does: ``data_parallel(group)`` makes every train-mode BatchNorm take
+its statistics over the group's ranks (sync BN, set by the train step), and
+``spatial_serving(mesh, kernels=...)`` runs the kernels' chains H-sharded over
+the mesh's spatial axis (``chain_site``, set by ``TimedForward``).
+
 ``init_module_params(Network(), seed)`` reproduces
 ``dffx.models.init_params(network_specs(), seed)`` bit for bit (and the same
 for ``E2ENetwork`` and ``e2e_network_specs``): the same per-kind
@@ -23,8 +29,9 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 import math
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -32,6 +39,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from dffx_torch.ops import batch_norm, batch_norm_train, bn_fused_affine, conv3d, deconv3d
+from dffx_torch.ops.halo import sharded_rows, spatial_ok
 from dffx_torch.ops.kernels import (ParamCache, fm_conv_bn_relu, fm_conv_params, rb2d_params,
                                     rb2d_residual, srd_attention_residual, tensor_stamp)
 
@@ -62,21 +70,69 @@ class ConvTranspose3d(nn.ConvTranspose3d):
 
 #: set while ``torch.utils.checkpoint`` recomputes a stage in the backward
 _RECOMPUTING = contextvars.ContextVar("dffx_torch_recomputing", default=False)
+#: the process group train-mode BatchNorm takes its statistics over (sync BN)
+_DATA_GROUP = contextvars.ContextVar("dffx_torch_data_group", default=None)
+#: the spatial mesh the kernels' chains run sharded over (``SpatialServing``)
+_SPATIAL = contextvars.ContextVar("dffx_torch_spatial", default=None)
 
 
 @contextlib.contextmanager
-def _recomputing():
-    token = _RECOMPUTING.set(True)
+def _setting(var: contextvars.ContextVar, value):
+    token = var.set(value)
     try:
         yield
     finally:
-        _RECOMPUTING.reset(token)
+        var.reset(token)
+
+
+def data_parallel(group):
+    """Within the block, train-mode ``BatchNorm3d`` takes its batch statistics
+    over ``group``'s ranks (``None``: this rank's batch alone)."""
+    return _setting(_DATA_GROUP, group)
+
+
+@dataclasses.dataclass(frozen=True)
+class SpatialServing:
+    """The spatial mesh and whether the chains run the kernels (``False``:
+    their stock layers, ``--spatial-xla``)."""
+
+    mesh: Any
+    kernels: bool = True
+
+
+def spatial_serving(mesh, *, kernels: bool = True):
+    """Within the block, eval forwards run the kernels' chains H-sharded over
+    ``mesh``'s spatial axis (``chain_site``)."""
+    return _setting(_SPATIAL, SpatialServing(mesh, kernels))
+
+
+def chain_site(x: torch.Tensor, kernel_fn, stock_fn, *, bleed: int) -> torch.Tensor:
+    """An eval chain of the kernels: ``kernel_fn(x)``, or under
+    ``spatial_serving`` the chain sharded over the spatial axis where its
+    height splits (``halo.sharded_rows``: this rank's rows plus halo rows,
+    ``stock_fn`` patching the true edges, then one all-gather along H) and
+    whole on every rank where it does not.  With ``kernels=False`` the stock
+    layers run in place of the kernels, sharded or whole."""
+    spatial = _SPATIAL.get()
+    if spatial is None:
+        return kernel_fn(x)
+    fn = kernel_fn if spatial.kernels else stock_fn
+    if not spatial_ok(spatial.mesh, x.shape[3]):
+        return fn(x)
+    return sharded_rows(fn, x, spatial.mesh, edge_fn=stock_fn, bleed=bleed)
+
+
+@contextlib.contextmanager
+def _recomputation(group):
+    with _setting(_RECOMPUTING, True), data_parallel(group):
+        yield
 
 
 def _checkpoint_contexts():
-    """``context_fn`` of ``ckpt_stage``: nothing around the forward, the
-    recompute flag around the recomputation."""
-    return contextlib.nullcontext(), _recomputing()
+    """``context_fn`` of ``ckpt_stage``: nothing around the forward; around
+    the recomputation, the recompute flag and the forward's data group
+    (the recomputation may run on another thread: autograd's for the device)."""
+    return contextlib.nullcontext(), _recomputation(_DATA_GROUP.get())
 
 
 def ckpt_stage(remat: bool, fn, *args):
@@ -95,8 +151,9 @@ def ckpt_stage(remat: bool, fn, *args):
 class BatchNorm3d(nn.BatchNorm3d):
     """BatchNorm3d with the JAX package's numerics (``dffx_torch.ops.norm``).
 
-    In training mode it normalises with the batch statistics and writes the
-    new running statistics in place, ``num_batches_tracked`` + 1
+    In training mode it normalises with the batch statistics, over the ranks
+    of the ``data_parallel`` group where one is set, and writes the new
+    running statistics in place, ``num_batches_tracked`` + 1
     (``dffx/models/layers.py::apply_bn``), except while a checkpointed stage
     is recomputed in the backward (``ckpt_stage``)."""
 
@@ -105,7 +162,8 @@ class BatchNorm3d(nn.BatchNorm3d):
             return batch_norm(x, self.running_mean, self.running_var, self.weight,
                               self.bias, eps=self.eps)
         y, mean, var = batch_norm_train(x, self.running_mean, self.running_var,
-                                        self.weight, self.bias, eps=self.eps)
+                                        self.weight, self.bias, eps=self.eps,
+                                        group=_DATA_GROUP.get())
         if not _RECOMPUTING.get():
             with torch.no_grad():
                 self.running_mean.copy_(mean)
@@ -200,9 +258,11 @@ class FMModule(nn.Module):
     In eval mode it runs as the three kernels, chained channel-first like
     ``dffx/models/layers.py::_fm_fused_chain``: conv -> rb2d -> attention.  On
     CUDA tensors they launch the CUDA kernels; on CPU tensors their plain
-    twins run through the same chain.  In training mode it runs its
-    ``Focus_extraction`` on stock ops, as ``fm_module_apply`` takes its XLA
-    chain under ``ctx.train``."""
+    twins run through the same chain.  Under ``spatial_serving`` the chain
+    runs H-sharded (``chain_site``, bleed 2: the dilated first conv is linear
+    over the zero rows, only the rb2d pair propagates).  In training mode it
+    runs its ``Focus_extraction`` on stock ops, as ``fm_module_apply`` takes
+    its XLA chain under ``ctx.train``."""
 
     def __init__(self):
         super().__init__()
@@ -216,6 +276,9 @@ class FMModule(nn.Module):
     def forward(self, x):
         if self.training:
             return self.Focus_extraction(x)
+        return chain_site(x, self._kernel_chain, self.Focus_extraction, bleed=2)
+
+    def _kernel_chain(self, x):
         conv, _, srd = self.Focus_extraction
         args = (conv[0].weight, *conv[1].fused_affine())
         y = fm_conv_bn_relu(x, *args, params=self._conv_params(x, *args))

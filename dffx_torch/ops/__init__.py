@@ -12,6 +12,7 @@
 * ``grid_sample_2d``            — F.grid_sample align_corners=True, zeros pad, (B, H, W, C)
 * ``softplus_argmax``           — softplus -> normalise over N -> soft-argmax
 * ``kernels``                   — the five CUDA kernels and their plain twins
+* ``halo``                      — the kernels' chains H-sharded over a spatial group
 
 Every name of ``dffx.ops.__all__`` is here; the warps keep ``dffx``'s layout,
 the rest take the port's channel-first one.

@@ -21,11 +21,13 @@ def avg_pool3d(x: torch.Tensor, window, stride=None) -> torch.Tensor:
 
 def adaptive_avg_pool_focus(x: torch.Tensor, n_out: int) -> torch.Tensor:
     """``nn.AdaptiveAvgPool3d((n_out, 1, 1))`` as ``dffx`` computes it: the
-    mean over H and W (summed in fp32), then torch's segment rule over N,
-    ``[floor(i * N / n_out), ceil((i + 1) * N / n_out))``.  Returns
+    mean over H and W (summed in fp32, or float64 for a float64 ``x``), then
+    torch's segment rule over N, ``[floor(i * N / n_out), ceil((i + 1) * N /
+    n_out))``.  Returns
     ``(B, C, n_out, 1, 1)`` in x.dtype."""
     n = x.shape[2]
-    pooled = torch.mean(x, dim=(3, 4), dtype=torch.float32).to(x.dtype)  # (B, C, N)
+    wide = torch.promote_types(x.dtype, torch.float32)
+    pooled = torch.mean(x, dim=(3, 4), dtype=wide).to(x.dtype)  # (B, C, N)
     if n != n_out:
         segs = [pooled[:, :, (i * n) // n_out: -(-((i + 1) * n) // n_out)].mean(dim=2)
                 for i in range(n_out)]

@@ -13,7 +13,9 @@ import torch.nn.functional as F
 def softplus_argmax(cost: torch.Tensor, focus_dists: torch.Tensor) -> torch.Tensor:
     """cost ``(B, N, H, W)``, focus_dists ``(B, N)`` -> ``(B, H, W)``.
 
-    Computed in fp32 and cast back to ``cost.dtype``."""
-    p = F.softplus(cost.float()) + 1e-6
+    Computed in fp32 (float64 for a float64 ``cost``) and cast back to
+    ``cost.dtype``."""
+    wide = torch.promote_types(cost.dtype, torch.float32)
+    p = F.softplus(cost.to(wide)) + 1e-6
     p = p / p.sum(dim=1, keepdim=True)
-    return torch.einsum("bnhw,bn->bhw", p, focus_dists.float()).to(cost.dtype)
+    return torch.einsum("bnhw,bn->bhw", p, focus_dists.to(wide)).to(cost.dtype)

@@ -5,6 +5,8 @@ recipe.
         [--saveroot train_test/] [--max_epoch N] [--load_epoch N]
         [--batch_size 4] [--cpus 10] [--data-root Datasets/] [--seed 0]
         [--steps-per-epoch N] [--remat] [--sanitize] [--device cuda|cpu]
+        [--bn_mode sync|per_shard] [--coordinator host:port]
+        [--num_processes N] [--process_id R]
 
 Flag names follow the reference scripts (`train_code_DDFF.py:22-29`).  The
 train step is ``dffx_torch.train.loop``'s on ``--device`` (default ``cuda``;
@@ -16,11 +18,25 @@ cuDNN searches its convolution algorithms once per shape
 (``torch.backends.cudnn.benchmark``, ``CUDNN_BENCHMARK``): the train crop is
 one shape, so the search is paid once.
 
-Not ported: ``--coordinator``, ``--num_processes``, ``--process_id`` and
-``--bn_mode per_shard`` (data-parallel training over several processes,
-which waits for the port of ``dffx/parallel/``; one device trains with
-``dffx``'s default ``--bn_mode sync`` statistics), and ``dffx``'s persistent
-compilation cache, which has no counterpart in PyTorch's eager step.
+Data-parallel training runs one process a rank, each on its own rows of the
+global ``--batch_size`` (``Loader``'s process shards) and, on the card, its
+own device (``cuda:(local_rank % device_count)``); ``--bn_mode`` chooses
+``dffx``'s BatchNorm semantics (``sync``: statistics of the global batch;
+``per_shard``: each rank's own, rank 0's running statistics kept, as
+``nn.DataParallel``).  Launch with ``dffx``'s flags, one command a rank:
+
+    python -m dffx_torch.train.cli ... --coordinator host0:1234 \
+        --num_processes 2 --process_id {0,1}
+
+(or ``DFFX_COORDINATOR`` / ``DFFX_NUM_PROCESSES`` / ``DFFX_PROCESS_ID``), or
+``torchrun --nproc_per_node 2 -m dffx_torch.train.cli ...``.  Only rank 0
+writes checkpoints and TensorBoard logs, validates and prints; a resumed run
+restores on every rank and takes rank 0's state.  The backend is NCCL where
+every rank has a card of its own and gloo otherwise
+(``dffx_torch.parallel.distributed``).
+
+Not ported: ``dffx``'s persistent compilation cache, which has no
+counterpart in PyTorch's eager step.
 """
 
 from __future__ import annotations
@@ -38,13 +54,25 @@ from dffx_torch.checkpoint import load_jax_params
 from dffx_torch.data import Loader, device_prefetch
 from dffx_torch.eval.common import cli_device
 from dffx_torch.models import E2ENetwork, Network, e2e_init_params, init_params
-from dffx_torch.train.loop import create_train_state, make_eval_fn, make_train_step
+from dffx_torch.parallel import distributed, make_mesh
+from dffx_torch.train.loop import (create_train_state, make_eval_fn, make_train_step,
+                                   replicate_state)
 from dffx_torch.train.recipes import RECIPES
 from dffx_torch.utils.tensorboard import SummaryWriter
 
 #: ``torch.backends.cudnn.benchmark`` for training on the card
 CUDNN_BENCHMARK = True
 TRAIN_KEYS = ("fs", "depth", "focus_dists", "mask", "conf", "fovs")
+
+
+class _NullWriter:
+    """Writer stand-in for the ranks other than 0 (only rank 0 logs)."""
+
+    def add_scalar(self, *a, **k):
+        pass
+
+    def close(self):
+        pass
 
 
 def _sync(device: torch.device) -> None:
@@ -150,16 +178,43 @@ def main(argv=None):
                              "training on into garbage (dffx_torch.utils.sanitize)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="where the model trains; 'cpu' only when asked")
+    parser.add_argument("--bn_mode", default="sync", choices=["sync", "per_shard"],
+                        help="BatchNorm semantics under data parallelism: "
+                             "'sync' (global-batch stats) or 'per_shard' "
+                             "(nn.DataParallel-faithful per-replica stats)")
+    parser.add_argument("--coordinator", default=None, type=str,
+                        help="multi-process: coordinator address host:port "
+                             "(or DFFX_COORDINATOR env)")
+    parser.add_argument("--num_processes", default=None, type=int,
+                        help="multi-process: total process count (or DFFX_NUM_PROCESSES)")
+    parser.add_argument("--process_id", default=None, type=int,
+                        help="multi-process: this process's id (or DFFX_PROCESS_ID)")
     args = parser.parse_args(argv)
 
-    device = cli_device(args.device)
+    # one process a rank: join the group, take this rank's device
+    device = distributed.initialize(args.coordinator, args.num_processes, args.process_id,
+                                    device=cli_device(args.device))
+    try:
+        _train(args, device)
+    finally:
+        distributed.shutdown()
+
+
+def _train(args, device: torch.device) -> None:
+    primary = distributed.is_primary()
     if device.type == "cuda":
         torch.backends.cudnn.benchmark = CUDNN_BENCHMARK
     recipe = RECIPES[args.recipe]
     max_epoch = args.max_epoch if args.max_epoch is not None else recipe.max_epoch
     root = args.saveroot
     os.makedirs(os.path.join(root, "models"), exist_ok=True)
-    writer = SummaryWriter(os.path.join(root, "logs"))
+    writer = SummaryWriter(os.path.join(root, "logs")) if primary else _NullWriter()
+
+    mesh = make_mesh()  # every rank on the data axis
+    n_ranks = mesh.size
+    assert args.batch_size % n_ranks == 0 or n_ranks == 1, (
+        f"batch_size {args.batch_size} must divide over {n_ranks} processes"
+    )
 
     train_ds, val_ds = recipe.make_datasets(args.data_root, args.seed)
 
@@ -172,18 +227,21 @@ def main(argv=None):
             reverse=True,
         )
         args.load_epoch = existing[0] if existing else 0
-        print(f"[dffx_torch] auto-resume from epoch {args.load_epoch}")
+        if primary:
+            print(f"[dffx_torch] auto-resume from epoch {args.load_epoch}")
     # Auto-resume loads ANY saved epoch (>= 1); only the explicit reference
     # flag keeps the reference's `load_epoch > 1` quirk (train_code_DDFF.py:63)
     # — otherwise a crash right after the first save would silently restart
     # from random weights while printing "auto-resume from epoch 1".
     state = create_train_state(_new_model(recipe, args.seed, device), lr=args.lr)
     if args.load_epoch >= 1 if auto_resume else args.load_epoch > 1:
-        ckpt.restore(os.path.join(root, "models", f"{args.load_epoch}.ckpt"), state)
+        # every rank reads the file; rank 0's state then stands for all
+        replicate_state(ckpt.restore(os.path.join(root, "models", f"{args.load_epoch}.ckpt"),
+                                     state))
 
     remat = args.remat == "on"
     step_fn = make_train_step(args.lr, recipe.loss, e2e=recipe.e2e, remat=remat,
-                              sanitize=args.sanitize)
+                              sanitize=args.sanitize, bn_mode=args.bn_mode, mesh=mesh)
     step_fn = _with_remat_hint(step_fn, remat=remat, batch_size=args.batch_size)
     eval_fn = make_eval_fn(e2e=recipe.e2e)
 
@@ -193,15 +251,18 @@ def main(argv=None):
     sums = dict(total=0.0, mid=0.0, l1=0.0, l2=0.0, l3=0.0, steps=0.0)
     pending_save = None
     for epoch in range(args.load_epoch, max_epoch + 1):
-        if epoch % recipe.save_epoch == 0 and epoch != args.load_epoch:
+        if epoch % recipe.save_epoch == 0 and epoch != args.load_epoch and primary:
             if pending_save is not None:
                 pending_save.wait()
             pending_save = ckpt.save_async(os.path.join(root, "models", f"{epoch}.ckpt"), state)
-        if epoch % recipe.test_epoch == 0:
+        if epoch % recipe.test_epoch == 0 and primary:
+            # the other ranks wait in their next step's first collective
             _validate(eval_fn, state.model, val_ds, recipe, writer, epoch, device)
 
         loader = Loader(train_ds, args.batch_size, shuffle=True, drop_last=True,
-                        num_threads=args.cpus, seed=args.seed + epoch)
+                        num_threads=args.cpus, seed=args.seed + epoch,
+                        process_id=distributed.process_index(),
+                        process_count=distributed.process_count())
         steps = 0
         for _, batch in device_prefetch(iter(loader), device, TRAIN_KEYS):
             state, logs = step_fn(state, batch)
@@ -226,7 +287,7 @@ def main(argv=None):
             if args.steps_per_epoch and steps >= args.steps_per_epoch:
                 break
 
-        if epoch % recipe.print_epoch == 0:
+        if epoch % recipe.print_epoch == 0 and primary:
             # actual accumulated steps, not num_train * print_epoch — the two
             # agree in the reference-shaped run, but --steps-per-epoch caps an
             # epoch short and would otherwise deflate the printed average

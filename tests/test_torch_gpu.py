@@ -687,3 +687,88 @@ def test_simulator_on_the_card_matches_cpu(cuda, rng, profile):
     np.testing.assert_allclose(got["depth"], want["depth"], rtol=1e-4, atol=1e-3)
     assert got["camera_setting"] == want["camera_setting"]
     assert sum(tk.launches.values()) == 0
+
+
+# ---------------------------------------------------------------------------
+# several processes on the card (tests/torch_dist_worker.py): two ranks share
+# it over gloo, each a process of its own
+# ---------------------------------------------------------------------------
+
+
+def test_data_parallel_steps_on_the_card(cuda, tmp_path):
+    """Two ranks on the card, ``sync`` and ``per_shard``: the same state on
+    both after three steps; the first ``sync`` step against one process on
+    the card on the global batch (loss 1e-5, gradients 0.25 max|g| + 1e-7 a
+    tensor and 5 % L2, statistics 1e-5), and in float64 (each gradient
+    within 1e-10 of its tensor's largest value); no kernel launches."""
+    import torch_dist_worker as w
+    from dffx_torch.train import LossConfig, create_train_state, make_train_step
+
+    ranks = w.launch("train", 2, tmp_path, timeout=600, device="cuda")
+    for mode in ("sync", "per_shard"):
+        a, b = ranks[0][mode][-1], ranks[1][mode][-1]
+        assert all(torch.equal(a["model"][k], b["model"][k]) for k in a["model"]), mode
+    state = create_train_state(w.new_model(False).to(cuda), w.LR)
+    state, logs = make_train_step(w.LR, LossConfig())(
+        state, {k: v.to(cuda) for k, v in w.torch_batch(w.train_batch(0)).items()})
+    assert tk.launches == dict.fromkeys(tk.launches, 0)
+    got = ranks[0]["sync"][0]
+    assert abs(got["logs"]["loss"] - float(logs["loss"])) <= 1e-5 * abs(float(logs["loss"]))
+    num = den = 0.0
+    for k, p in state.model.named_parameters():
+        g, want = got["grads"][k], p.grad.cpu()
+        assert (g - want).abs().max().item() <= 0.25 * want.abs().max().item() + 1e-7, k
+        num, den = num + float(((g - want) ** 2).sum()), den + float((want ** 2).sum())
+    assert num <= 0.05 ** 2 * den
+    for k, want in state.model.state_dict().items():
+        if k.endswith(("running_mean", "running_var")):
+            torch.testing.assert_close(got["stats"][k], want.cpu(), rtol=1e-5, atol=1e-6)
+    state = create_train_state(w.new_model(False).to(cuda, torch.float64), w.LR)
+    state, logs = make_train_step(w.LR, LossConfig(), compute_dtype=torch.float64)(
+        state, {k: v.to(cuda) for k, v in w.torch_batch(w.in_float64(w.train_batch(0))).items()})
+    got = ranks[0]["sync64"][0]
+    for k, p in state.model.named_parameters():
+        g, want = got["grads"][k], p.grad.cpu()
+        assert g.dtype == torch.float64, k
+        assert (g - want).abs().max().item() <= 1e-10 * want.abs().max().item(), k
+
+
+def test_spatial_chain_sites_on_the_card(cuda, tmp_path):
+    """The three chain sites sharded over two ranks on the card: the kernels
+    against the same sites whole on the card (1e-4), the stock layers too;
+    one launch of each kernel a site with the kernels, none without."""
+    import torch_dist_worker as w
+
+    ranks = w.launch("halo", 2, tmp_path, timeout=600, device="cuda", spatial=2)
+    dff, e2e = w.new_model(False).to(cuda).eval(), w.new_model(True).to(cuda).eval()
+    flow = e2e.optical_flow_aggregation
+    sites = {"fm": dff.DFF_net.FM_measure, "of": flow.OF_feature, "head": flow.conv3}
+    with torch.no_grad():
+        want = {k: sites[k](torch.from_numpy(x).to(cuda)).cpu()
+                for k, x in w.chain_inputs(2).items()}
+    for r in ranks:
+        for site, ref in want.items():
+            for how in ("kernels", "stock"):
+                torch.testing.assert_close(r[f"{site}_{how}"], ref, rtol=0, atol=1e-4)
+        assert r["launches_kernels"] == dict.fromkeys(E2E_LAUNCHES, 1)
+        assert r["launches_stock"] == dict.fromkeys(E2E_LAUNCHES, 0)
+        assert r["traffic"]["host_staged"] > 0  # gloo carries host tensors
+
+
+def test_spatial_forwards_on_the_card(cuda, tmp_path):
+    """``TimedForward(spatial=2)`` on two ranks on the card against the same
+    forward whole on the card (1e-4): DFFNet, and E2E whose lower levels run
+    whole; every kernel launched once a forward a rank (``rb_of_chain``
+    three times), none under ``--spatial-xla``."""
+    import torch_dist_worker as w
+    from dffx_torch.eval import TimedForward
+
+    ranks = w.launch("forward", 2, tmp_path, timeout=600, device="cuda", spatial=2)
+    for key in [k for k in ranks[0] if isinstance(k[0], bool)]:
+        e2e, h, wd, pallas = key
+        want = TimedForward(w.new_model(e2e).to(cuda))(*w.forward_inputs(e2e, h, wd))
+        launches = (E2E_LAUNCHES if e2e else dict.fromkeys(DFFNET_KERNELS, 1)) if pallas else {}
+        for r in ranks:
+            assert r["launches", *key] == {k: launches.get(k, 0) for k in E2E_LAUNCHES}, key
+            for g, ref in zip(r[key], want):
+                torch.testing.assert_close(g, ref.cpu(), rtol=0, atol=1e-4)

@@ -2,6 +2,7 @@
 the kernel build raises, without a fallback, when there is no nvcc."""
 
 import ast
+import os
 import pathlib
 
 import pytest
@@ -9,6 +10,7 @@ import torch
 
 from dffx_torch.ops import _build
 from dffx_torch.ops import kernels as tk
+from dffx_torch.parallel import distributed
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "dffx_torch"
@@ -25,12 +27,15 @@ def _imported_roots(path: pathlib.Path):
 
 def test_port_imports_no_jax_and_no_dffx():
     """Every module of the port, ``chip_smoke.py`` (which runs where there is
-    no JAX) and the test helpers it imports (``tests/torch_fixtures.py``)."""
+    no JAX), the test helpers it imports (``tests/torch_fixtures.py``) and the
+    multi-process tests' rank (``tests/torch_dist_worker.py``)."""
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "tests" / "torch_fixtures.py"]
-    assert len(files) >= 24
+                                         ROOT / "tests" / "torch_fixtures.py",
+                                         ROOT / "tests" / "torch_dist_worker.py"]
+    assert len(files) >= 28
     for new in ("models/packed.py", "sim/simulator.py", "sim/__init__.py", "__main__.py",
-                "utils/doctor.py", "utils/profiling.py"):
+                "utils/doctor.py", "utils/profiling.py", "parallel/__init__.py",
+                "parallel/distributed.py", "parallel/mesh.py", "ops/halo.py"):
         assert PKG / new in files, new
     bad = {(f.relative_to(ROOT).as_posix(), m) for f in files for m in _imported_roots(f)
            if m in FORBIDDEN}
@@ -118,3 +123,37 @@ def test_cpu_tensors_never_touch_the_library(monkeypatch):
                               aff16, torch.zeros(3, 16, 1, 3, 3), torch.zeros(3))
     assert len(tk.launches) == 5
     assert tk.launches == dict.fromkeys(tk.launches, 0)
+
+
+def test_a_group_on_the_card_raises_without_one(monkeypatch):
+    """``initialize``'s device defaults to the card and, without one, raises
+    before any rendezvous."""
+    import inspect
+
+    assert inspect.signature(distributed.initialize).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distributed.initialize("127.0.0.1:1", 2, 0)
+    assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("module,argv", [
+    ("dffx_torch.eval.test", ["--dataset", "DDFF", "--spatial", "2", "--results-root"]),
+    ("dffx_torch.eval.real_scenes", ["--spatial", "2", "--out"]),
+    ("dffx_torch.train.cli", ["--recipe", "DDFF", "--lr", "1e-4", "--num_processes", "2",
+                              "--process_id", "1", "--coordinator", "127.0.0.1:1",
+                              "--saveroot"]),
+], ids=["test", "real_scenes", "train"])
+def test_multi_process_command_lines_default_to_the_card(module, argv, tmp_path):
+    """A rank of each multi-process command line (``--num_processes``,
+    ``--spatial``) defaults to the card and, without one, raises before it
+    joins a group or writes anything."""
+    import importlib
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
+        importlib.import_module(module).main(argv + [str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists() and not torch.distributed.is_initialized()
+    assert os.environ.get("DFFX_PROCESS_ID") is None
