@@ -25,6 +25,18 @@ and bf16, plain and remat, and the end-to-end network in fp32 and bf16, with
 no kernel launch in any train step; the trained weights in eval mode against
 the CPU, and a train-state checkpoint round trip.
 
+Then the port's host library (``host_decode``; ``dffx_torch/data/native.py``
+on ``dffx_torch/csrc/host``, built with ``g++`` from the checkout): its
+build seconds and units on this machine (a unit whose header is missing is
+absent, and ``cv2`` decodes its formats), with ``g++``'s version, the CPU
+model and the core count; 720 x 1296 JPEG, PNG (8-bit BGR and gray, 16-bit
+gray and BGR, alpha), EXIF-rotated JPEG and, where the TIFF unit is built,
+TIFF files, each byte-equal to ``cv2.imread`` (or ``IMREAD_UNCHANGED``) and
+read by the route its decode counters must show; the library's decode
+against ``cv2.imread`` where it decodes, ``normalize_pad_stack`` against its
+numpy version at DDFF-12's and the real scene's stacks, and the real-scenes
+reader alone, each ms with the card's name and power limit.
+
 Then it runs the three command lines, each with every launch count at 0
 just before it and read just after:
 
@@ -37,7 +49,9 @@ just before it and read just after:
   forward and against ``--batch_size 1``;
 * ``real_scenes_cli``: ``python -m dffx_torch.eval.real_scenes`` on one
   scene of ten 720 x 1296 JPEGs (10 x 608 x 1088 after its crop and pad)
-  against a direct ``E2ENetwork`` forward;
+  against a direct ``E2ENetwork`` forward, with the host library's decode
+  counters at 0 before it: every JPEG read ``native`` where the codec unit
+  is built, ``cv2-absent`` where it is not;
 * ``train_cli``: ``python -m dffx_torch.train.cli --recipe DDFF`` at batch 4
   (224 x 224 crops), validating 2 full-size stacks, each run in a process of
   its own, without and with ``cudnn.benchmark``; the resume from
@@ -158,13 +172,16 @@ REPLACES = {
                                "dffx/ops/pallas_kernels.py:508"),
 }
 #: Published peaks of one H100 SXM at its full power limit (NVIDIA's data sheet):
-#: HBM bytes/s and dense TF32 FLOP/s.  The kernels' functions are fp32 convs; on
-#: the tensor cores an fp32-accurate product costs three TF32 products (3xTF32:
-#: hi.hi + hi.lo + lo.hi of the operands' two TF32 parts).  A bf16 activation is
-#: a TF32 already and has no low part: a product of it with an fp32 weight costs
-#: two.
+#: HBM bytes/s and dense TF32 and bf16 FLOP/s.  In fp32 the kernels' functions
+#: are fp32 convs; on the tensor cores an fp32-accurate product costs three TF32
+#: products (3xTF32: hi.hi + hi.lo + lo.hi of the operands' two TF32 parts).  In
+#: bf16 the functions multiply bf16 by bf16 (the TPU kernels cast their weights
+#: to the activation's dtype, dffx/ops/pallas_kernels.py:166, :272-274, and the
+#: twins in dffx_torch/ops/kernels.py every intermediate too): one bf16 product
+#: a multiply-accumulate.
 HBM_BYTES_PER_S = 3.35e12
 TF32_FLOP_PER_S = 495e12
+BF16_FLOP_PER_S = 989e12
 
 
 def _conv_flop(w) -> int:
@@ -173,7 +190,7 @@ def _conv_flop(w) -> int:
 
 
 #: per kernel, from its arguments: (FLOP per pixel of the convs that read the
-#: input x, FLOP per pixel of the convs that read an fp32 intermediate, channels
+#: input x, FLOP per pixel of the convs that read an intermediate, channels
 #: read + written per pixel)
 WORK = {
     "fm_conv_bn_relu": lambda x, w, *_: (_conv_flop(w), 0, 3 + 8),
@@ -193,17 +210,20 @@ WORK = {
 def bound_ms(name: str, x, *args) -> tuple:
     """The least time the card could take for this call, and what sets it: the
     larger of its bytes (every input and output element moved once, in x's
-    dtype) over the HBM rate and its operations over the TF32 rate, three TF32
-    products for one of fp32 values and two where the activation is a bf16
-    input.  No single PyTorch call computes any of the five functions (each is
-    a fused chain of convs, BN and ReLU), so no row has a library time."""
+    dtype) over the HBM rate and its operations over the tensor cores' rate:
+    in fp32 three TF32 products a multiply-accumulate at the TF32 rate, in
+    bf16 one at the bf16 rate.  No single PyTorch call computes any of the
+    five functions (each is a fused chain of convs, BN and ReLU), so no row has
+    a library time."""
     import torch
 
     flop_in, flop_mid, chans_px = WORK[name](x, *args)
     pixels = x.numel() // x.shape[1]
     by_bytes = pixels * chans_px * x.element_size() / HBM_BYTES_PER_S * 1e3
-    tf32_flop = (2 if x.dtype == torch.bfloat16 else 3) * flop_in + 3 * flop_mid
-    by_ops = pixels * tf32_flop / TF32_FLOP_PER_S * 1e3
+    if x.dtype == torch.bfloat16:
+        by_ops = pixels * (flop_in + flop_mid) / BF16_FLOP_PER_S * 1e3
+    else:
+        by_ops = pixels * 3 * (flop_in + flop_mid) / TF32_FLOP_PER_S * 1e3
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
@@ -900,6 +920,162 @@ def phase_eval_cli(torch, np, tk, dev, smi) -> dict:
     return launched["fp32_b8"]
 
 
+#: the host library's image cases at the real scene's image size: (file, what
+#: it holds, read unchanged, a file dffx's decoder hands to cv2)
+HOST_IMAGES = (("c8.jpg", "8-bit BGR JPEG", False, False),
+               ("c8.png", "8-bit BGR PNG", False, False),
+               ("g8.png", "8-bit gray PNG", True, False),
+               ("g16.png", "16-bit gray PNG", True, False),
+               ("c16.png", "16-bit BGR PNG", True, False),
+               ("a8.png", "8-bit BGRA PNG", False, True),
+               ("exif6.jpg", "JPEG with EXIF orientation 6", False, True),
+               ("c8.tif", "8-bit RGB TIFF", False, False),
+               ("g8.tif", "8-bit gray TIFF", False, False))
+HOST_REPS = 7  # timed reads or normalisations a case (median reported)
+#: normalize_pad_stack's stacks: DDFF-12's and the real scene's after its crop
+NORMALIZE_SHAPES = {"ddff": (10, 383, 552, 3), "real_scene": (10, 600, 1080, 3)}
+
+
+def host_ms(fn, reps: int = HOST_REPS) -> float:
+    """Median host milliseconds of ``fn()`` after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def routes(native) -> dict:
+    """The host library's decode counters as ``{"format/route": reads}``."""
+    return {f"{fmt}/{route}": n for (fmt, route), n in sorted(native.decodes.items())}
+
+
+def host_machine() -> dict:
+    """The host's CPU model, cores and ``g++``."""
+    import os
+    import platform
+
+    from dffx_torch.data import _host_build
+
+    model = None
+    for cmd in (["lscpu"], ["cat", "/proc/cpuinfo"]):
+        try:
+            out = subprocess.run(cmd, capture_output=True, text=True, timeout=30).stdout
+        except OSError:
+            continue
+        fields = {ln.split(":", 1)[0].strip().lower(): ln.split(":", 1)[1].strip()
+                  for ln in out.splitlines() if ":" in ln}
+        if fields.get("model name", "unknown") not in ("", "unknown"):
+            model = fields["model name"]
+        elif "vendor id" in fields:  # a virtual machine may hide the name
+            model = (f"{fields['vendor id']} family {fields.get('cpu family', '?')} "
+                     f"model {fields.get('model', '?')}")
+        if model:
+            break
+    gxx = subprocess.run([_host_build.find_cxx(), "--version"], capture_output=True,
+                         text=True).stdout.splitlines()[0]
+    return {"cpu": model or platform.processor() or "not reported", "nproc": os.cpu_count(),
+            "affinity": len(os.sched_getaffinity(0)), "gxx": gxx}
+
+
+def phase_host_decode(np, smi) -> None:
+    """The port's host library (``dffx_torch/data/native.py`` on
+    ``dffx_torch/csrc/host``): its build and units on this machine; at
+    ``SCENE_SHAPE``'s image size each of ``HOST_IMAGES`` (TIFFs where the
+    TIFF unit is built) byte-equal to ``cv2.imread`` (or ``IMREAD_UNCHANGED``)
+    with the route the counters show, and the library's decode against
+    ``cv2.imread`` where it decodes; ``normalize_pad_stack`` against its
+    numpy version at ``NORMALIZE_SHAPES`` (bit-equal, ms a stack); the
+    real-scenes reader alone on one scene (ms a stack)."""
+    import cv2
+
+    from dffx_torch.data import RealScenesDataset, _host_build, native
+    from torch_fixtures import exif_oriented
+
+    t0 = time.perf_counter()
+    built = native.library().build
+    emit({"phase": "host_build", "device": smi, "seconds": time.perf_counter() - t0,
+          "compile_seconds": built.seconds, "library": built.path.name, "units": built.units,
+          "absent": {u: f"no {', '.join(h)}: cv2 decodes "
+                        f"{', '.join(_host_build.UNITS[u].formats)}"
+                     for u, h in built.absent.items()},
+          "formats": sorted(native.formats()), **host_machine()})
+    _, h, w = SCENE_SHAPE
+    rng = np.random.default_rng(23)
+    base = cv2.GaussianBlur(rng.integers(0, 256, (h, w, 3), dtype=np.uint8), (0, 0), 3)
+    noisy = np.clip(base.astype(np.int16) + rng.integers(-6, 7, (h, w, 3)), 0, 255)
+    images = {"c8": noisy.astype(np.uint8), "g8": cv2.cvtColor(noisy.astype(np.uint8),
+                                                               cv2.COLOR_BGR2GRAY)}
+    images["g16"] = images["g8"].astype(np.uint16) * 257 + rng.integers(0, 257, (h, w),
+                                                                          dtype=np.uint16)
+    images["c16"] = images["c8"].astype(np.uint16) * 257
+    images["a8"] = np.dstack([images["c8"], images["g8"]])
+    failed = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, what, unchanged, punt in HOST_IMAGES:
+            fmt = {"jpg": "jpeg", "png": "png", "tif": "tiff"}[name.rsplit(".", 1)[1]]
+            if fmt == "tiff" and fmt not in native.formats():
+                emit({"phase": "host_decode", "device": smi, "file": name, "holds": what,
+                      "skipped": f"the tiff unit is not built: {built.absent.get('tiff')}"})
+                continue
+            path = f"{tmp}/{name}"
+            stem = name.split(".")[0]
+            if stem == "exif6":
+                jpeg = cv2.imencode(".jpg", images["c8"])[1].tobytes()
+                Path(path).write_bytes(exif_oriented(jpeg, 6))
+            else:
+                check(cv2.imwrite(path, images[stem]), f"cv2 wrote no {name}")
+            flag = cv2.IMREAD_UNCHANGED if unchanged else cv2.IMREAD_COLOR
+            read = native.imread_unchanged if unchanged else native.imread
+            compat = native.imread_unchanged_compat if unchanged else native.imread_compat
+            native.reset_decodes()
+            got, want = compat(path, "chip_smoke host_decode"), cv2.imread(path, flag)
+            counted = routes(native)
+            route = ("cv2-absent" if fmt not in native.formats() else
+                     "cv2-punt" if punt else "native")
+            equal = got.dtype == want.dtype and got.shape == want.shape and bool(
+                np.array_equal(got, want))
+            row = {"phase": "host_decode", "device": smi, "file": name, "holds": what,
+                   "shape": list(got.shape), "dtype": str(got.dtype),
+                   "bytes": Path(path).stat().st_size, "unchanged": unchanged,
+                   "equal_to_cv2": equal, "routes": counted, "expected_route": route,
+                   "cv2_ms": host_ms(lambda: cv2.imread(path, flag))}
+            row["native_ms"] = host_ms(lambda: read(path)) if route == "native" else (
+                f"not measured: {route}")
+            emit(row)
+            if not (equal and counted == {f"{fmt}/{route}": 1}):
+                failed.append(name)
+        native.reset_decodes()
+        for tag, shape in NORMALIZE_SHAPES.items():
+            stack = rng.integers(0, 256, shape, dtype=np.uint8)
+            same = bool(np.array_equal(native.normalize_pad_stack(stack),
+                                       native.normalize_pad_stack_plain(stack)))
+            lib_ms = host_ms(lambda: native.normalize_pad_stack(stack))
+            plain_ms = host_ms(lambda: native.normalize_pad_stack_plain(stack))
+            emit({"phase": "host_normalize", "device": smi, "stack": tag, "in": list(shape),
+                  "out": list(native.normalize_pad_stack(stack).shape), "bit_equal": same,
+                  "ms": lib_ms, "plain_ms": plain_ms, "speedup": plain_ms / lib_ms,
+                  "threads": 4})
+            if not same:
+                failed.append(f"normalize {tag}")
+        write_scene(np, Path(tmp) / "scenes")
+        reader = RealScenesDataset(f"{tmp}/scenes")
+        fs = list(reader[0]["fs"].shape)
+        native.reset_decodes()
+        ms = host_ms(lambda: reader[0], reps=3)
+        # 4 reads of the stack, each its 10 JPEGs and the first once more
+        want = {("jpeg", "native" if "jpeg" in native.formats() else "cv2-absent"): 4 * 11}
+        emit({"phase": "host_reader", "device": smi, "reader": "RealScenesDataset",
+              "scene": list(SCENE_SHAPE), "fs": fs, "ms_a_stack": ms,
+              "stacks_per_s": 1e3 / ms, "routes": routes(native)})
+        if native.decodes != want:
+            failed.append("RealScenesDataset routes")
+    native.reset_decodes()
+    check(not failed, f"host_decode: {failed}")
+
+
 def write_scene(np, root: Path) -> None:
     """One hand-held scene of ``SCENE_SHAPE`` JPEGs (smooth random content with
     per-slice noise), ``focus_distance.txt`` and ``focal_length.txt``."""
@@ -923,7 +1099,7 @@ def phase_real_scenes_cli(torch, np, tk, dev, smi) -> dict:
     10 x 608 x 1088, fp32: depth and warped stack against a direct
     ``E2ENetwork`` forward of the reader's sample (1e-4).  Returns the
     launches."""
-    from dffx_torch.data import RealScenesDataset
+    from dffx_torch.data import RealScenesDataset, native
     from dffx_torch.eval import load_params_auto
     from dffx_torch.eval import real_scenes as cli
     from torch_fixtures import recording_forwards, run_cli
@@ -933,10 +1109,15 @@ def phase_real_scenes_cli(torch, np, tk, dev, smi) -> dict:
         jpegs = []
         with stand_ins({}, jpegs), recording_forwards(cli) as kept:
             tk.reset_launches()
+            native.reset_decodes()
             out = run_cli(cli.main, ["--data-root", f"{tmp}/scenes", "--out", f"{tmp}/out/",
                                      "--allow-random-init"])
             torch.cuda.synchronize()
             launched = dict(tk.launches)
+            decoded = routes(native)
+            # the scene's 10 JPEGs, the first read twice (its size, then its slice)
+            want = {("jpeg", "native" if "jpeg" in native.formats() else "cv2-absent"): 11}
+            check(native.decodes == want, f"real_scenes_cli decodes {decoded} != {want}")
         pngs = sorted(p.name for p in (Path(tmp) / "out" / "warped_result" / "0").iterdir())
         sample = RealScenesDataset(f"{tmp}/scenes")[0]
     check_launches(launched, E2E_LAUNCHES, "real_scenes_cli")
@@ -953,7 +1134,7 @@ def phase_real_scenes_cli(torch, np, tk, dev, smi) -> dict:
     finite = all(bool(np.isfinite(got[k]).all()) for k in ("depth", "warped"))
     emit({"phase": "real_scenes_cli", "device": smi, "dtype": "fp32",
           "shape": list(sample["fs"].shape), "unpadded": [h, w],
-          "avg_time_s": printed(out, "AVG_time"), "launches": launched,
+          "avg_time_s": printed(out, "AVG_time"), "launches": launched, "decodes": decoded,
           "fp32_max_abs_err": errs, "atol": FP32_ATOL, "finite": finite, "pngs": len(pngs),
           "jpegs": [list(shape) for _, shape in jpegs]})
     check(finite and max(errs.values()) <= FP32_ATOL, f"real_scenes_cli against E2E: {errs}")
@@ -1514,9 +1695,9 @@ def rank_dp_train(torch, np, dev, spec) -> dict:
                                for p in state.model.parameters()]}
     torch.backends.cudnn.deterministic = False
     # the collectives alone, on this rank's card: the step's gradient
-    # all-reduce and one BN layer's statistics (2 x 32 fp32)
+    # all-reduce and one BN layer's statistics (2 x 32 sums and the count, fp32)
     group = mesh.group("data")
-    sizes = {"grads": sum(p.numel() for p in state.model.parameters()), "bn_stats": 64}
+    sizes = {"grads": sum(p.numel() for p in state.model.parameters()), "bn_stats": 65}
     runs["collective_ms"] = {}
     for what, n in sizes.items():
         buf = torch.zeros(n, device=dev)
@@ -2120,6 +2301,7 @@ def main() -> int:
     # 11. the command lines, each run with every count at 0 just before it
     emit({"phase": "host_gaps", "not_run_on_card": [
         {"package": pkg, "missing": True, "instead": what} for pkg, what in HOST_GAPS.items()]})
+    phase_host_decode(np, smi)
     cli_runs = {"eval_cli": phase_eval_cli(torch, np, tk, dev, smi),
                 "real_scenes_cli": phase_real_scenes_cli(torch, np, tk, dev, smi),
                 "train_cli_validation": phase_train_cli(torch, np, tk, dev, smi)}

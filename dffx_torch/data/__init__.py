@@ -1,5 +1,6 @@
 """dffx_torch.data — the port's dataset readers, augmentation, EXR codec and
-input pipeline: copies of ``dffx.data`` in numpy, ``cv2``, ``h5py`` and
+input pipeline: copies of ``dffx.data`` in numpy, the port's C++ host
+library (decode and normalisation, ``native``), ``cv2``, ``h5py`` and
 ``scipy.io`` (imported by the reader that needs them), with a prefetch that
 pins each batch and copies it to the card on a side stream."""
 

@@ -5,7 +5,8 @@ per-dataset clamp/mask rules and focus-distance tables).
 
 The port's copy of ``dffx/data/datasets.py``: the same readers, draws and
 sample dicts (a seed gives the same crops and flips in both packages), with
-every decode on ``cv2`` and numpy (``dffx_torch.data.native``).
+every decode and normalisation through the port's host library
+(``dffx_torch.data.native``), which leaves some files to ``cv2``.
 
 Layout contract (``dffx``'s, vs the reference's ``(3, N, H, W)``):
 
@@ -19,7 +20,8 @@ Layout contract (``dffx``'s, vs the reference's ``(3, N, H, W)``):
 
 Everything is host-side numpy; the card never sees a file format.  ``h5py``
 and ``cv2`` are imported by the reader that needs them, when it is built or
-reads (``native.require``).
+reads (``native.require``); ``cv2`` only for the files the host library
+leaves to it.
 """
 
 from __future__ import annotations

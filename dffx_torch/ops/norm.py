@@ -10,10 +10,10 @@
   in the batch (torch's ``nn.BatchNorm3d``).
 
 With a process group (``group``: sync BN over the data axis, ``dffx``'s
-``axis_name``) the fp32 sums of ``x`` and ``x^2`` are summed over the group's
-ranks before they are divided, and ``n`` is the group's (every rank holds
-an equal shard, as ``dffx``'s ``psum(1)`` takes it): the statistics of the
-global batch.
+``axis_name``) the fp32 sums of ``x`` and ``x^2`` and each rank's count are
+summed over the group's ranks in one all-reduce before they are divided: the
+statistics of the global batch, whatever rows each rank holds (``dffx``'s
+``sync`` mode is one program over the global batch).
 """
 
 from __future__ import annotations
@@ -21,7 +21,6 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
-import torch.distributed as dist
 
 from dffx_torch.parallel.distributed import all_reduce_
 
@@ -76,20 +75,22 @@ def batch_norm_train(x: torch.Tensor, running_mean, running_var, weight, bias, *
     gradient through the batch statistics; the new running statistics are
     fp32 (float64 for float64 ``x``) and carry none.  ``group``: a process
     group whose ranks' batches together make the statistics (sync BN; one
-    all-reduce of ``2 C`` fp32 values)."""
+    all-reduce of ``2 C + 1`` fp32 values: the two sums and the count, which
+    carries no gradient)."""
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
     dims = [0, *range(2, x.dim())]
     n = x.numel() // x.shape[1]
     if group is None:
         mean, mean_sq = xf.mean(dims), xf.square().mean(dims)
     else:
-        n *= dist.get_world_size(group)
-        mean, mean_sq = sum_over_ranks(torch.stack([xf.sum(dims), xf.square().sum(dims)]),
-                                       group) / n
+        sums = sum_over_ranks(torch.cat([xf.sum(dims), xf.square().sum(dims),
+                                         xf.new_full((1,), n)]), group)
+        n = sums[-1].detach()  # the group's count (exact in fp32 up to 2^24 values)
+        mean, mean_sq = sums[:-1].view(2, -1) / n
     var = mean_sq - mean.square()  # biased, used for normalization
     y = batch_norm(x, mean, var, weight, bias, eps=eps)
     with torch.no_grad():
-        unbiased = var * (n / max(n - 1, 1))
+        unbiased = var * (n / max(n - 1, 1) if group is None else n / (n - 1).clamp(min=1))
         new_mean = (1.0 - momentum) * running_mean.to(mean.dtype) + momentum * mean
         new_var = (1.0 - momentum) * running_var.to(mean.dtype) + momentum * unbiased
     return y, new_mean, new_var

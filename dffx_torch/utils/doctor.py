@@ -3,15 +3,19 @@
 The questions that gate the port on a machine: is torch built for CUDA, is
 there a card (its name and power limit, as ``nvidia-smi`` gives them), is
 ``nvcc`` there to build the kernels, is the kernel library already built for
-the current sources, which optional data packages are importable, and does
-the EXR codec round-trip.
+the current sources, which units of the host library (the loaders' C++
+decode and normalisation) this machine's headers allow, which optional data
+packages are importable, and does the EXR codec round-trip.
 
-The checks are light: nothing here builds the kernels or runs a model.  The
-exit code is 0 when every *core* row (torch, the CUDA device, ``nvcc``,
-numpy, the EXR codec) is healthy; the port's entry points run on the card
-and raise without one, so on a machine without a card ``doctor`` exits 1
-and says why.  Optional rows only warn: the reader or writer that needs a
-missing package raises when it runs, naming it.
+The checks are light: nothing here builds the kernels or runs a model; the
+host library is built (about a second with ``g++``) or found built.  The
+exit code is 0 when every *core* row (torch, the CUDA device, ``nvcc``, the
+host library, numpy, the EXR codec) is healthy; the port's entry points run
+on the card and raise without one, so on a machine without a card
+``doctor`` exits 1 and says why.  The host library warns where a codec unit
+is absent (``cv2`` then decodes that format).  Optional rows only warn: the
+reader or writer that needs a missing package raises when it runs, naming
+it.
 """
 
 from __future__ import annotations
@@ -76,6 +80,22 @@ def _library_row() -> Tuple[str, str, str]:
                 "first kernel launch")
 
 
+def _host_library_row() -> Tuple[str, str, str]:
+    from dffx_torch.data import _host_build, native
+
+    try:
+        built = native.library().build
+    except _host_build.BuildError as e:
+        return _row("host library", FAIL, f"cannot build: {e}".splitlines()[0])
+    detail = f"{built.path} with {', '.join(built.units)}"
+    if not built.absent:
+        return _row("host library", OK, detail)
+    missing = "; ".join(f"{unit} (no {', '.join(headers)})"
+                        for unit, headers in built.absent.items())
+    return _row("host library", WARN, f"{detail}; absent: {missing}: cv2 decodes "
+                f"{', '.join(sorted(f for u in built.absent for f in _host_build.UNITS[u].formats))}")
+
+
 def _exr_row() -> Tuple[str, str, str]:
     import os
     import tempfile
@@ -109,6 +129,7 @@ def collect() -> List[Tuple[str, str, str]]:
     rows.append(_device_row(torch))
     rows.append(_nvcc_row())
     rows.append(_library_row())
+    rows.append(_host_library_row())
     try:
         import numpy
 
@@ -132,7 +153,8 @@ def main(argv=None) -> int:
     argparse.ArgumentParser(
         prog="python -m dffx_torch doctor",
         description="Report whether this machine can run the port: torch, the CUDA "
-                    "device, nvcc, the kernel library and the data packages.").parse_args(argv)
+                    "device, nvcc, the kernel library, the host library and the data "
+                    "packages.").parse_args(argv)
     rows = collect()
     width = max(len(n) for n, _, _ in rows)
     worst = 0

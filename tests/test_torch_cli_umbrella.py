@@ -3,7 +3,8 @@
 Dispatch reaches each of the five subcommands' real parsers; usage,
 ``--version`` and an unknown command exit 0, 0 and 2.  ``doctor`` on a
 machine without a card fails its device row with the reason and exits 1,
-and imports no JAX.
+and imports no JAX; its host-library row warns where a codec unit is absent
+and fails where the library cannot build.
 """
 
 import subprocess
@@ -14,6 +15,7 @@ import pytest
 
 from dffx_torch.__main__ import _COMMANDS
 from dffx_torch.__main__ import main as umbrella
+from dffx_torch.data import _host_build, native
 from dffx_torch.utils import doctor
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -67,8 +69,12 @@ def test_doctor_rows_on_this_machine(capsys):
     for core in ("dffx_torch", "python", "torch", "numpy", "exr codec"):
         assert rows[core][0] == doctor.OK, (core, rows[core])
     assert "jax" not in rows and "csrc/libdffxio" not in rows
-    assert set(rows) >= {"cuda device", "nvcc", "kernel library", "h5py", "cv2", "scipy",
-                         "imageio"}
+    assert set(rows) >= {"cuda device", "nvcc", "kernel library", "host library", "h5py",
+                         "cv2", "scipy", "imageio"}
+    status, detail = rows["host library"]
+    built = native.library().build
+    assert str(built.path) in detail and all(u in detail for u in built.units)
+    assert status == (doctor.WARN if built.absent else doctor.OK), detail
     if torch.cuda.is_available():
         pytest.skip("a card is here: chip_smoke.py runs doctor on it")
     status, detail = rows["cuda device"]
@@ -76,6 +82,35 @@ def test_doctor_rows_on_this_machine(capsys):
     assert umbrella(["doctor"]) == 1
     out = capsys.readouterr().out
     assert "[FAIL]  no CUDA device" in out and out.rstrip().endswith("CORE CHECKS FAILED")
+
+
+@pytest.mark.parametrize("absent,status", [({}, doctor.OK),
+                                           ({"tiff": ("tiffio.h",)}, doctor.WARN),
+                                           ({"codec": ("jpeglib.h", "png.h"),
+                                             "tiff": ("tiffio.h",)}, doctor.WARN),
+                                           (None, doctor.FAIL)])
+def test_doctor_host_library_row(monkeypatch, absent, status):
+    """The row names the library, its units and each absent unit's missing
+    headers and the formats ``cv2`` decodes instead; a failed build fails it."""
+    def library():
+        if absent is None:
+            raise _host_build.BuildError("g++ not found on PATH: ...")
+        units = tuple(u for u in _host_build.UNITS if u not in absent)
+        return native.HostLibrary(None, _host_build.HostBuild(Path("/x/lib.so"), units,
+                                                              absent, 0.0))
+
+    monkeypatch.setattr(native, "library", library)
+    name, got, detail = doctor._host_library_row()
+    assert (name, got) == ("host library", status)
+    if absent is None:
+        assert detail == "cannot build: g++ not found on PATH: ..."
+        return
+    assert detail.startswith("/x/lib.so with normalize")
+    for unit, headers in absent.items():
+        assert f"{unit} (no {', '.join(headers)})" in detail
+    assert ("cv2 decodes" in detail) == bool(absent)
+    if "codec" in absent:
+        assert detail.endswith("cv2 decodes jpeg, png, tiff")
 
 
 def test_doctor_imports_no_jax():

@@ -253,6 +253,29 @@ def test_e2e_sync_step_matches_one_process(ranks):
     assert_same_bits(ranks[0]["e2e"][0], ranks[1]["e2e"][0])
 
 
+@pytest.mark.parametrize("dtype,rtol", [("float32", 1e-6), ("float64", 1e-10)])
+def test_sync_bn_of_unequal_rows_matches_one_process(ranks, dtype, rtol):
+    """Sync BN on two ranks holding 1 and 3 rows against one process holding
+    all 4: y and x's gradient on each rank's rows and the new running
+    statistics within ``rtol`` of each tensor's largest value.  The count
+    travels in the all-reduce of the sums: one of ``2 C + 1`` values in the
+    forward and one in the backward, as many as with equal rows."""
+    want = w.bn_rows_step(w.bn_rows_inputs(np.dtype(dtype).type), slice(None))
+    got = [r["bn_rows"][dtype] for r in ranks]
+    c = want["running_mean"].numel()
+    for rec in got:
+        assert rec["all_reduces"] == [2 * c + 1, 2 * c + 1]
+        assert rec["bytes"] == 2 * (2 * c + 1) * np.dtype(dtype).itemsize
+        for k in ("running_mean", "running_var"):
+            bound = rtol * want[k].abs().max().item()
+            assert (rec[k] - want[k]).abs().max().item() <= bound, (k, rec[k], want[k])
+    for k in ("y", "dx"):
+        joined = torch.cat([rec[k] for rec in got])
+        assert joined.dtype == getattr(torch, dtype) and joined.shape == want[k].shape
+        bound = rtol * want[k].abs().max().item()
+        assert (joined - want[k]).abs().max().item() <= bound, k
+
+
 def test_make_train_step_checks_its_mode():
     with pytest.raises(ValueError, match="requires a mesh"):
         make_train_step(w.LR, LossConfig(), bn_mode="per_shard")

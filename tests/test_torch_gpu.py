@@ -700,7 +700,9 @@ def test_data_parallel_steps_on_the_card(cuda, tmp_path):
     both after three steps; the first ``sync`` step against one process on
     the card on the global batch (loss 1e-5, gradients 0.25 max|g| + 1e-7 a
     tensor and 5 % L2, statistics 1e-5), and in float64 (each gradient
-    within 1e-10 of its tensor's largest value); no kernel launches."""
+    within 1e-10 of its tensor's largest value); no kernel launches.  Sync BN
+    alone on ranks of 1 and 3 rows in float64 against one process of 4 on
+    the CPU (y, x's gradient, the running statistics within 1e-10)."""
     import torch_dist_worker as w
     from dffx_torch.train import LossConfig, create_train_state, make_train_step
 
@@ -731,6 +733,15 @@ def test_data_parallel_steps_on_the_card(cuda, tmp_path):
         g, want = got["grads"][k], p.grad.cpu()
         assert g.dtype == torch.float64, k
         assert (g - want).abs().max().item() <= 1e-10 * want.abs().max().item(), k
+    # sync BN on 1 and 3 rows, float64, against one process on the CPU
+    want = w.bn_rows_step(w.bn_rows_inputs(np.float64), slice(None))
+    got = [r["bn_rows"]["float64"] for r in ranks]
+    for k in ("y", "dx"):
+        joined = torch.cat([rec[k] for rec in got])
+        assert (joined - want[k]).abs().max().item() <= 1e-10 * want[k].abs().max().item(), k
+    for rec in got:
+        for k in ("running_mean", "running_var"):
+            assert (rec[k] - want[k]).abs().max().item() <= 1e-10 * want[k].abs().max().item()
 
 
 def test_spatial_chain_sites_on_the_card(cuda, tmp_path):

@@ -32,14 +32,77 @@ def test_port_imports_no_jax_and_no_dffx():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "tests" / "torch_fixtures.py",
                                          ROOT / "tests" / "torch_dist_worker.py"]
-    assert len(files) >= 28
+    assert len(files) >= 49
     for new in ("models/packed.py", "sim/simulator.py", "sim/__init__.py", "__main__.py",
                 "utils/doctor.py", "utils/profiling.py", "parallel/__init__.py",
-                "parallel/distributed.py", "parallel/mesh.py", "ops/halo.py"):
+                "parallel/distributed.py", "parallel/mesh.py", "ops/halo.py",
+                "data/_host_build.py"):
         assert PKG / new in files, new
     bad = {(f.relative_to(ROOT).as_posix(), m) for f in files for m in _imported_roots(f)
            if m in FORBIDDEN}
     assert not bad, bad
+
+
+#: what a file of the port would name to load the JAX package's host library
+ROOT_HOST_LIBRARY = ("libdffxio", "dffxio.cc", "csrc/Makefile")
+
+
+def _code_strings(path: pathlib.Path):
+    """The string constants of a module but its docstrings."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef))
+            and n.body and isinstance(n.body[0], ast.Expr)
+            and isinstance(n.body[0].value, ast.Constant)}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in docs:
+            yield node.value
+
+
+def test_port_loads_nothing_of_the_root_csrc():
+    """No module of the port (nor ``chip_smoke.py``) names the JAX package's
+    host library or its sources in code, and the port's C++ sources include
+    only system headers: the port's decoder is built from
+    ``dffx_torch/csrc/host`` alone."""
+    from dffx_torch.data import _host_build
+
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    bad = {(f.relative_to(ROOT).as_posix(), s) for f in files for s in _code_strings(f)
+           if any(name in s for name in ROOT_HOST_LIBRARY)}
+    assert not bad, bad
+    assert _host_build.HOST == PKG / "csrc" / "host"
+    sources = sorted(_host_build.HOST.glob("*.cc"))
+    assert [p.name for p in sources] == sorted(u.source for u in _host_build.UNITS.values())
+    for src in sources:
+        includes = [ln for ln in src.read_text().splitlines() if ln.startswith("#include")]
+        assert includes and all(ln.startswith("#include <") for ln in includes), (src, includes)
+    # the kernel build stays CUDA-only: the host sources are not its sources
+    assert not {p for p in _build.sources() if _build.CSRC / "host" in p.parents}
+
+
+def test_port_process_maps_its_own_host_library_only(tmp_path):
+    """In a process of its own, the port normalises a stack and decodes a PNG
+    and a JPEG: the library it maps is its own build under ``build/host``,
+    and no ``libdffxio`` is mapped."""
+    import subprocess
+    import sys
+
+    code = (
+        "import numpy as np, cv2, sys\n"
+        "from dffx_torch.data import native\n"
+        "img = np.zeros((8, 8, 3), np.uint8)\n"
+        "for ext in ('png', 'jpg'):\n"
+        "    cv2.imwrite(f'{sys.argv[1]}/x.{ext}', img)\n"
+        "    native.imread_compat(f'{sys.argv[1]}/x.{ext}', 'a test')\n"
+        "native.normalize_pad_stack(np.zeros((1, 4, 4, 3), np.uint8))\n"
+        "print(native.library().build.path)\n"
+        "print(open('/proc/self/maps').read())\n")
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    path, maps = proc.stdout.split("\n", 1)
+    assert pathlib.Path(path).parent == ROOT / "build" / "host" and path in maps
+    assert "libdffxio" not in maps
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

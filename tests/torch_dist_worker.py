@@ -117,6 +117,38 @@ def forward_inputs(e2e: bool, h: int, w: int):
     return args
 
 
+#: the rows each of two ranks holds in the unequal sync-BN task
+BN_ROWS = (1, 3)
+
+
+def bn_rows_inputs(dtype=np.float32):
+    """Train-mode BatchNorm's operands at ``sum(BN_ROWS)`` rows: x (B, C, N,
+    H, W) off zero, the gradient the loss sends into y, running statistics
+    and the affine."""
+    rng = np.random.default_rng(400)
+    b, c = sum(BN_ROWS), 6
+    return {"x": (rng.uniform(-1, 1, (b, c, 3, 5, 7)) * 2 + 0.5).astype(dtype),
+            "dy": rng.uniform(-1, 1, (b, c, 3, 5, 7)).astype(dtype),
+            "running_mean": rng.uniform(-0.1, 0.1, c).astype(np.float32),
+            "running_var": rng.uniform(0.5, 1.5, c).astype(np.float32),
+            "weight": rng.uniform(0.5, 1.5, c).astype(dtype),
+            "bias": rng.uniform(-0.5, 0.5, c).astype(dtype)}
+
+
+def bn_rows_step(inputs: dict, rows: slice, group=None, device="cpu") -> dict:
+    """``batch_norm_train`` on ``rows`` of ``inputs`` (over ``group``'s ranks
+    where one is given) and the backward of ``sum(y * dy)``: y, the new
+    running statistics and x's gradient."""
+    from dffx_torch.ops import batch_norm_train
+
+    t = {k: torch.from_numpy(v).to(device) for k, v in inputs.items()}
+    x = t["x"][rows].clone().requires_grad_()
+    y, mean, var = batch_norm_train(x, t["running_mean"], t["running_var"], t["weight"],
+                                    t["bias"], group=group)
+    (y * t["dy"][rows]).sum().backward()
+    return {"y": y.detach(), "running_mean": mean, "running_var": var, "dx": x.grad}
+
+
 def new_model(e2e: bool, seed: int = 0):
     from dffx_torch.checkpoint import load_jax_params
     from dffx_torch.models import E2ENetwork, Network, e2e_init_params, init_params
@@ -176,12 +208,43 @@ def _train_run(mesh, batches, device, *, e2e=False, bn_mode="sync", remat=False,
     return records
 
 
+def _bn_rows(mesh, device) -> dict:
+    """Sync BN with ``BN_ROWS[rank]`` rows a rank, fp32 and float64; with the
+    all-reduces the layer made and their bytes."""
+    from dffx_torch.ops import norm
+    from dffx_torch.parallel import distributed
+    from dffx_torch.parallel.mesh import DATA_AXIS
+
+    rank = distributed.process_index()
+    rows = slice(sum(BN_ROWS[:rank]), sum(BN_ROWS[:rank + 1]))
+    calls = []
+
+    def counted(t, group):
+        calls.append(t.numel())
+        return distributed.all_reduce_(t, group)
+
+    out = {}
+    norm.all_reduce_, plain = counted, norm.all_reduce_
+    try:
+        for dtype in (np.float32, np.float64):
+            calls.clear()
+            distributed.reset_traffic()
+            rec = bn_rows_step(bn_rows_inputs(dtype), rows, mesh.group(DATA_AXIS), device)
+            out[np.dtype(dtype).name] = {**rec, "all_reduces": list(calls),
+                                         "bytes": distributed.traffic["all_reduce"]}
+    finally:
+        norm.all_reduce_ = plain
+    return _cpu(out)
+
+
 def task_train(spec, mesh):
     """DFFNet: sync for three steps (in fp32, and in float64), per_shard for
-    three, remat sync for one; E2E: sync for one."""
+    three, remat sync for one; E2E: sync for one; sync BN alone on unequal
+    rows (``_bn_rows``)."""
     batches = [train_batch(seed) for seed in range(3)]
     dev = spec["device"]
-    return {"sync": _train_run(mesh, batches, dev),
+    return {"bn_rows": _bn_rows(mesh, dev),
+            "sync": _train_run(mesh, batches, dev),
             "sync64": _train_run(mesh, [in_float64(b) for b in batches], dev,
                                  dtype=torch.float64),
             "per_shard": _train_run(mesh, batches, dev, bn_mode="per_shard"),

@@ -228,6 +228,18 @@ def write_flyingthings(root, *, h=40, w=56, seed=6):
     return base + "/"
 
 
+def exif_oriented(jpeg: bytes, orientation: int) -> bytes:
+    """``jpeg`` with an EXIF APP1 segment right after SOI that holds one
+    Orientation tag (little-endian TIFF header, one IFD entry): ``cv2.imread``
+    rotates such a file, libjpeg does not."""
+    import struct
+
+    ifd = struct.pack("<2sHI", b"II", 42, 8) + struct.pack("<H", 1)
+    ifd += struct.pack("<HHIHH", 0x0112, 3, 1, orientation, 0) + struct.pack("<I", 0)
+    body = b"Exif\x00\x00" + ifd
+    return jpeg[:2] + b"\xff\xe1" + struct.pack(">H", len(body) + 2) + body + jpeg[2:]
+
+
 def write_real_scene(root, *, h=48, w=72, n=10, seed=7, name="scene0"):
     """One hand-held scene: ``n`` JPEG slices, ``focus_distance.txt`` (metres,
     one a line) and ``focal_length.txt``; the reader crops 1/12 borders."""
