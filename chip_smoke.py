@@ -123,7 +123,7 @@ its error against its twin, both times and the bound at the end-to-end path's
 shapes (rb_of_chain: the sum over its three pyramid levels, and each level
 under ``levels``), and for ``fm_conv_bn_relu`` the time of the one PyTorch call
 that computes its function (``torch.cudnn_convolution_relu`` on the BN-folded
-weight and shift); the line before it gives the build's
+weight and shift; fp32, and bf16 under ``library``); the line before it gives the build's
 and the whole run's seconds; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the repository around it, the script exits non-zero and
@@ -212,9 +212,11 @@ def bound_ms(name: str, x, *args) -> tuple:
     larger of its bytes (every input and output element moved once, in x's
     dtype) over the HBM rate and its operations over the tensor cores' rate:
     in fp32 three TF32 products a multiply-accumulate at the TF32 rate, in
-    bf16 one at the bf16 rate.  No single PyTorch call computes any of the
-    five functions (each is a fused chain of convs, BN and ReLU), so no row has
-    a library time."""
+    bf16 one at the bf16 rate.  Of the five functions only ``fm_conv_bn_relu``'s
+    is one PyTorch call (``torch.cudnn_convolution_relu`` on the BN-folded
+    weight and shift, timed by ``fm_conv_library``); the other four are fused
+    chains of convs, BN and ReLU that no single call computes, so their
+    library time is null."""
     import torch
 
     flop_in, flop_mid, chans_px = WORK[name](x, *args)
@@ -230,7 +232,8 @@ def bound_ms(name: str, x, *args) -> tuple:
 #: the function that packs a kernel's weights into the one buffer it reads, for
 #: the kernels whose modules keep that buffer between forwards (tk.ParamCache)
 PACKERS = {"fm_conv_bn_relu": "fm_conv_params", "rb2d_residual": "rb2d_params",
-           "rb_of_chain": "rb_of_chain_params", "motion_head_conv_chain": "motion_head_params"}
+           "rb_of_chain": "rb_of_chain_params", "motion_head_conv_chain": "motion_head_params",
+           "srd_attention_residual": "srd_attention_params"}
 
 #: launches of each kernel in one forward of each network
 DFFNET_LAUNCHES = {"fm_conv_bn_relu": 1, "rb2d_residual": 1, "srd_attention_residual": 1}
@@ -294,7 +297,8 @@ def kernel_cases(rng, torch, tk, dev):
     for tag, (b, n, h, w), c in rb_shapes + grid_shapes:
         yield "rb2d_residual", f"{tag}_c{c}", (
             act((b, c, n, h, w)), wt((c, c, 1, 3, 3)), bn(c), wt((c, c, 1, 3, 3)), bn(c))
-    # the attention walks N inside a thread and has B in its block index
+    # the attention's grid splits the focus axis into runs and flattens B into
+    # the block index: 65,537 slices and 65,537 stacks both launch
     srd_shapes = rb_shapes + [("n1", (1, 1, H, W), 8), ("slices", slices, 8),
                               ("batches", (65537, 1, 2, 3), 8)]
     for tag, (b, n, h, w), c in srd_shapes:
@@ -339,9 +343,12 @@ def phase_kernels(torch, tk, dev) -> dict:
             if dtype == torch.float32:
                 bound = FP32_ATOL
             else:
-                # the kernel keeps every sum and intermediate in fp32 and rounds
-                # only its output to bf16: at most half an ulp, which is below
-                # 2^-8 of the largest |value|; 1e-4 covers fp32 summation order
+                # the kernel keeps every sum and intermediate in fp32 (the
+                # attention's bf16 products split each fp32 weight and its fp32
+                # intermediate into bf16 hi + lo, so they are fp32-accurate too)
+                # and rounds only its output to bf16: at most half an ulp, which
+                # is below 2^-8 of the largest |value|; 1e-4 covers fp32
+                # summation order
                 bound = 2.0 ** -8 * ref.abs().max().item() + FP32_ATOL
             if name in PACKERS:
                 cache = tk.ParamCache(getattr(tk, PACKERS[name]))
@@ -366,7 +373,8 @@ def phase_kernels(torch, tk, dev) -> dict:
 def fm_conv_library(torch, tk, dev) -> dict:
     """``torch.cudnn_convolution_relu`` on the BN-folded weight and shift: the
     one PyTorch call that computes ``fm_conv_bn_relu``'s function, at the
-    end-to-end shape in fp32, against the twin; or the error the call gives."""
+    end-to-end shape against the fp32 twin, in fp32 (``library_ms``) and in
+    bf16 (``bf16``: its time, or the error the call gives)."""
     import numpy as np
 
     rng = np.random.default_rng(3)
@@ -377,20 +385,27 @@ def fm_conv_library(torch, tk, dev) -> dict:
         rng.random(8) + 0.5))
     scale, shift = tk.bn_fused_affine(g, b, mu, va)
     w_folded = (w * scale.view(-1, 1, 1, 1, 1)).contiguous()
+    out = {"call": "torch.cudnn_convolution_relu"}
+    for dtype in (torch.float32, torch.bfloat16):
+        xd, wd, sd = x.to(dtype), w_folded.to(dtype), shift.to(dtype)
 
-    def call():
-        return torch.cudnn_convolution_relu(x, w_folded, shift, (1, 1, 1), (0, 8, 8),
-                                            (1, 2, 2), 1)
+        def call():
+            return torch.cudnn_convolution_relu(xd, wd, sd, (1, 1, 1), (0, 8, 8), (1, 2, 2), 1)
 
-    try:
-        got = call()
-        torch.cuda.synchronize()
-    except RuntimeError as e:
-        return {"call": "torch.cudnn_convolution_relu", "error": str(e).splitlines()[0],
-                "library_ms": None}
-    err = (got - tk.fm_conv_bn_relu_ref(x, w, scale, shift)).abs().max().item()
-    return {"call": "torch.cudnn_convolution_relu", "max_abs_err": err,
-            "library_ms": median_ms(call)}
+        try:
+            got = call()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            row = {"error": str(e).splitlines()[0], "library_ms": None}
+        else:
+            ref = tk.fm_conv_bn_relu_ref(xd.float(), w, scale, shift)
+            row = {"max_abs_err": (got.float() - ref).abs().max().item(),
+                   "library_ms": median_ms(call)}
+        if dtype == torch.float32:
+            out.update(row)
+        else:
+            out["bf16"] = row
+    return out
 
 
 def kernel_entry(name: str, rows: list, launches: int, train_launches: int,
@@ -403,8 +418,9 @@ def kernel_entry(name: str, rows: list, launches: int, train_launches: int,
     parallel); ``cli_launches``: in each command line's measured run
     (``train_cli`` and ``dp_train_cli``: their validation forwards);
     ``spatial_launches``: on rank 0 of each ``spatial`` case's timed run.
-    ``bound_by``: what sets the largest row's bound.  ``library_ms``: ``library``'s time where one PyTorch call
-    computes the function (``fm_conv_library``), else null (see
+    ``bound_by``: what sets the largest row's bound.  ``library_ms``:
+    ``library``'s fp32 time where one PyTorch call computes the function
+    (``fm_conv_library``; its bf16 time under ``library``), else null (see
     ``bound_ms``)."""
     entry = {"name": name, "route": "cuda", "source": REPLACES[name][0],
              "replaces": REPLACES[name][1], "launches": launches,

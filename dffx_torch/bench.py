@@ -8,8 +8,9 @@ Every line it prints is one JSON object with the card's name and power limit
 (``nvidia-smi --query-gpu=name,power.limit``).  ``--root`` names the tree whose
 ``dffx_torch`` is imported and built (default: the tree this file is in), so two
 trees can be measured in turns by one command; for that the script itself
-takes both C signatures of ``rb2d_residual`` (separate weight pointers in the
-tree before its redesign, one packed buffer now).
+takes both C signatures of ``rb2d_residual`` and of ``srd_attention_residual``
+(separate weight pointers in the trees before their redesigns, one packed
+buffer now, and for the attention its grid plan).
 
 * ``kernels``   each kernel against its fp32 twin, fp32 and bf16: the median of
                 single calls through the wrapper and, for the kernels whose
@@ -76,7 +77,8 @@ EH, EW = 608, 1088
 
 #: the function that packs each kernel's weights, where the wrapper packs them
 PACKERS = {"fm_conv_bn_relu": "fm_conv_params", "rb2d_residual": "rb2d_params",
-           "rb_of_chain": "rb_of_chain_params", "motion_head_conv_chain": "motion_head_params"}
+           "rb_of_chain": "rb_of_chain_params", "motion_head_conv_chain": "motion_head_params",
+           "srd_attention_residual": "srd_attention_params"}
 
 
 GRAPHS = ("unpacked", "deconvs", "tail", "packed")
@@ -215,11 +217,19 @@ def raw_launch(torch, tk, lib, name, x, args):
         return (lambda: lib.dffx_rb_of_chain(*ptrs, b, x.shape[1], cout, len(blocks), n, h, w,
                                              dt, stream)), y
     if name == "srd_attention_residual":
+        fn = lib.dffx_srd_attention_residual
         y = torch.empty_like(x)
+        c = x.shape[1]
+        if len(fn.argtypes) == 12:  # f, params, y, B, C, N, H, W, slices, blocks, dtype, stream
+            plan = tk.srd_attention_plan(b, c, n, h * w, x.dtype == torch.bfloat16,
+                                         tk._sm_count(x.device))
+            params = tk.srd_attention_params(x, *args)
+            ptrs = (x.data_ptr(), params.data_ptr(), y.data_ptr())
+            return (lambda: fn(*ptrs, b, c, n, h, w, plan.slices, plan.blocks, dt, stream)), y
+        # the tree before the redesign: f, wn, w1, y, B, C, N, H, W, dtype, stream
         keep = [t.float().contiguous() for t in args]
         ptrs = [x.data_ptr(), *(t.data_ptr() for t in keep), y.data_ptr()]
-        return (lambda: lib.dffx_srd_attention_residual(*ptrs, b, x.shape[1], n, h, w, dt,
-                                                        stream)), y
+        return (lambda: fn(*ptrs, b, c, n, h, w, dt, stream)), y
     raise ValueError(name)
 
 
@@ -253,6 +263,12 @@ def bench_kernels(np, torch, tk, lib, dev, smi, reps, only=()):
              ("rb2d_residual", "ragged_c16", mk.rb2d(*ragged, c=16)),
              ("rb2d_residual", "ragged_c32", mk.rb2d(*ragged, c=32)),
              ("srd_attention_residual", "e2e_c8", mk.srd(*e2e)),
+             ("srd_attention_residual", "path_c8", mk.srd(*path)),
+             ("srd_attention_residual", "b4_c8", mk.srd(4, N, H, W)),
+             ("srd_attention_residual", "ragged_c16", mk.srd(*ragged, c=16)),
+             ("srd_attention_residual", "ragged_c32", mk.srd(*ragged, c=32)),
+             ("srd_attention_residual", "slices_c8", mk.srd(1, 65537, 2, 3)),
+             ("srd_attention_residual", "batches_c8", mk.srd(65537, 1, 2, 3)),
              ("rb_of_chain", "e2e_fe1", mk.chain(*e2e, ((3, 8), (8, 8)))),
              ("rb_of_chain", "odd_fe1", mk.chain(*odd, ((3, 8), (8, 8)))),
              ("rb_of_chain", "e2e_fe2", mk.chain(1, N, EH // 2, EW // 2, ((16, 16),))),
@@ -282,7 +298,7 @@ def bench_kernels(np, torch, tk, lib, dev, smi, reps, only=()):
             row["kernel_only_err"] = (y.float() - ref).abs().max().item()
             row["kernel_only_ms"] = median_ms(torch, launch, reps)
             row["kernel_only_back_to_back_ms"] = back_to_back_ms(torch, launch)
-            if tag in ("e2e", "path") or tag.startswith("e2e_"):
+            if tag in ("e2e", "path") or tag.startswith(("e2e_", "path_", "slices_")):
                 row["twin_ms"] = median_ms(torch, lambda: twin(x, *args[1:]), max(reps // 3, 5))
             emit(row)
             del ref, got

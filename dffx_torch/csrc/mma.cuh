@@ -1,7 +1,8 @@
 // Tensor-core building blocks of the implicit-GEMM conv kernels (fm_conv.cu,
 // motion_head.cu, rb_of.cu, and res_block.cuh for rb_of.cu and rb2d.cu):
 // mma.sync m16n8k8 with TF32 operands and fp32 accumulators, in the 3xTF32
-// split.
+// split; srd_attention.cu takes the MMAs, the split and cp.async from here,
+// and the bf16 MMAs (m16n8k16, m16n8k8) too.
 //
 // A conv is a GEMM with M = pixels (m-tiles of 16), N = output channels
 // (n-tiles of 8) and K = taps x input channels (k-steps of 8).  Plain TF32
@@ -83,6 +84,30 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b, m16n8k16, bf16 in (two to a register, the lower k in the low
+// half), fp32 accumulator.  A: a0 = (row g, k 2t..2t+1), a1 = (g + 8, 2t..),
+// a2 = (g, 2t+8..), a3 = (g + 8, 2t+8..); B: b0 = (k 2t..2t+1, column g),
+// b1 = (k 2t+8.., g); C as m16n8k8's.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b, m16n8k8, bf16 in: a0 = (row g, k 2t..2t+1), a1 = (g + 8, 2t..),
+// b = (k 2t..2t+1, column g)
+__device__ __forceinline__ void mma_bf16_k8(float (&d)[4], uint32_t a0, uint32_t a1,
+                                            uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b));
 }
 
 // ---------------------------------------------------------------------------

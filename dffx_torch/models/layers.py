@@ -41,7 +41,8 @@ from torch.utils.checkpoint import checkpoint
 from dffx_torch.ops import batch_norm, batch_norm_train, bn_fused_affine, conv3d, deconv3d
 from dffx_torch.ops.halo import sharded_rows, spatial_ok
 from dffx_torch.ops.kernels import (ParamCache, fm_conv_bn_relu, fm_conv_params, rb2d_params,
-                                    rb2d_residual, srd_attention_residual, tensor_stamp)
+                                    rb2d_residual, srd_attention_params, srd_attention_residual,
+                                    tensor_stamp)
 
 
 class Conv3d(nn.Conv3d):
@@ -272,6 +273,7 @@ class FMModule(nn.Module):
             SRD(8))
         self._conv_params = ParamCache(fm_conv_params)
         self._rb_params = ParamCache(rb2d_params)
+        self._srd_params = ParamCache(srd_attention_params)
 
     def forward(self, x):
         if self.training:
@@ -286,7 +288,8 @@ class FMModule(nn.Module):
         args = (rb[0][0].weight, rb[0][1].fused_affine(), rb[2][0].weight, rb[2][1].fused_affine())
         f = rb2d_residual(y, *args, params=self._rb_params(y, *args))
         att = srd.N_ch_attention
-        return srd_attention_residual(f, att[0].weight, att[2].weight)
+        args = (att[0].weight, att[2].weight)
+        return srd_attention_residual(f, *args, params=self._srd_params(f, *args))
 
 
 # ---------------------------------------------------------------------------

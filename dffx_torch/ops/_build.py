@@ -38,8 +38,8 @@ SIGNATURES = {
     "dffx_fm_conv_bn_relu": [_P] * 3 + [_I] * 5 + [_P],
     # x, params, y, B, C, N, H, W, dtype, stream
     "dffx_rb2d_residual": [_P] * 3 + [_I] * 6 + [_P],
-    # f, wn, w1, y, B, C, N, H, W, dtype, stream
-    "dffx_srd_attention_residual": [_P] * 4 + [_I] * 6 + [_P],
+    # f, params, y, B, C, N, H, W, slices, blocks, dtype, stream
+    "dffx_srd_attention_residual": [_P] * 3 + [_I] * 8 + [_P],
     # x, params, y, B, Cin, Cout, nblocks, N, H, W, dtype, stream
     "dffx_rb_of_chain": [_P] * 3 + [_I] * 8 + [_P],
     # x, params, y, B, Cin, C, N, H, W, dtype, stream

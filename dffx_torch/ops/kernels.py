@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -61,6 +61,10 @@ __all__ = [
     "rb2d_params",
     "rb_of_chain_params",
     "motion_head_params",
+    "srd_attention_params",
+    "srd_attention_plan",
+    "srd_params_size",
+    "SrdPlan",
     "ParamCache",
     "tensor_stamp",
     "cuts_gradients",
@@ -107,13 +111,6 @@ def _check_act(x: torch.Tensor, c: int | None = None) -> None:
 def _check_param(t: torch.Tensor, shape: tuple, name: str) -> None:
     if tuple(t.shape) != shape:
         raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
-
-
-def _param(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """A weight or affine vector as the kernel takes it: fp32, contiguous, on x's card."""
-    if t.device != x.device:
-        raise ValueError(f"parameter on {t.device}, activations on {x.device}")
-    return t.float().contiguous()
 
 
 def cuts_gradients(on_cuda: bool, grad_enabled: bool, requires_grad) -> bool:
@@ -185,7 +182,8 @@ class ParamCache:
     tensors changes.
 
     Eval weights are constants, and packing them (``fm_conv_params``,
-    ``rb2d_params``, ``rb_of_chain_params``, ``motion_head_params``) costs the host about
+    ``rb2d_params``, ``rb_of_chain_params``, ``motion_head_params``,
+    ``srd_attention_params``) costs the host about
     0.1 ms a call, which a small image or an idle card shows.  A module keeps
     one ``ParamCache(pack)`` per kernel it calls and hands ``cache(x, *args)``
     to the wrapper as ``params``; for a CPU tensor that is ``None`` (the twin
@@ -217,18 +215,22 @@ class ParamCache:
         return self._pack(x, *args) if buf is None else buf
 
 
-def _use_params(params, x: torch.Tensor, tensors, layouts) -> torch.Tensor:
-    """The packed buffer a launch reads: the caller's (``ParamCache``), after
-    a check of its device, type and size, or one packed now."""
-    if params is None:
-        return _packed(x, tensors, layouts)
-    want = _gather_index(tuple(tuple(t.shape) for t in tensors), tuple(layouts),
-                         x.device).numel()
+def _check_params(params: torch.Tensor, x: torch.Tensor, want: int) -> torch.Tensor:
+    """A caller's packed buffer, after a check of its device, type and size."""
     if (params.device != x.device or params.dtype != torch.float32
             or not params.is_contiguous() or params.numel() != want):
         raise ValueError(f"params: expected {want} contiguous float32 on {x.device}, got "
                          f"{params.numel()} {params.dtype} on {params.device}")
     return params
+
+
+def _use_params(params, x: torch.Tensor, tensors, layouts) -> torch.Tensor:
+    """The packed buffer a launch reads: the caller's (``ParamCache``), after
+    a check of its device, type and size, or one packed now."""
+    if params is None:
+        return _packed(x, tensors, layouts)
+    return _check_params(params, x, _gather_index(tuple(tuple(t.shape) for t in tensors),
+                                                  tuple(layouts), x.device).numel())
 
 
 def _pad_value(w: torch.Tensor) -> int:
@@ -436,10 +438,132 @@ def srd_attention_residual_ref(f, wn, w1):
     return f + torch.relu(F.conv3d(a, w1.to(f.dtype)))
 
 
-def srd_attention_residual(f: torch.Tensor, wn: torch.Tensor, w1: torch.Tensor
-                           ) -> torch.Tensor:
+#: warps of a block of ``csrc/srd_attention.cu`` (its WARPS), each with an item of its own
+SRD_WARPS = 4
+#: warps an SM holds at once: 4 blocks of 4 at the kernel's 128 registers a thread
+SRD_WARPS_PER_SM = 16
+#: the shortest run of slices a warp is given while the focus axis is split
+SRD_MIN_SLICES = 4
+
+
+class SrdPlan(NamedTuple):
+    """The launch of ``csrc/srd_attention.cu``: a warp takes one item, a
+    (stack, run of ``slices`` slices, tile of ``tile`` flat pixels); item i
+    is tile ``i % tiles``, run ``i // tiles % chunks``, stack ``i // (tiles
+    * chunks)``, and warp w of block k takes item ``k * SRD_WARPS + w``."""
+    slices: int
+    tile: int
+    tiles: int
+    chunks: int
+    items: int
+    blocks: int
+
+
+def _srd_tile(c: int, bf16: bool) -> int:
+    """Flat pixels of a warp's tile in ``csrc/srd_attention.cu``: 16 MT (MT =
+    32 / C m-tiles), twice that in bf16 at C = 8, which computes two
+    sub-tiles in turn so that a warp's loads stay 256 contiguous bytes a
+    channel."""
+    return 16 * (32 // c) * (2 if bf16 and c == 8 else 1)
+
+
+@functools.lru_cache(maxsize=4096)
+def srd_attention_plan(b: int, c: int, n: int, hw: int, bf16: bool = False,
+                       sms: int = 132) -> SrdPlan:
+    """The grid of ``csrc/srd_attention.cu`` for ``(b, c, n, hw)`` in fp32 or
+    bf16 on a card of ``sms`` SMs: runs of all N slices where that gives two
+    waves of warps, else runs halved (rounding up) until it does or until a
+    run would be shorter than ``SRD_MIN_SLICES``.  A run reads one halo slice
+    on each side inside the stack, so a split costs at most 2 / slices more
+    reads."""
+    if c not in _KERNEL_CHANNELS or min(b, n, hw) < 1:
+        raise ValueError(f"no srd_attention plan for B={b} C={c} N={n} HW={hw}")
+    tile = _srd_tile(c, bf16)
+    tiles = -(-hw // tile)
+    want = 2 * sms * SRD_WARPS_PER_SM
+    s = n
+    while b * tiles * -(-n // s) < want and -(-s // 2) >= SRD_MIN_SLICES:
+        s = -(-s // 2)
+    chunks = -(-n // s)
+    items = b * tiles * chunks
+    blocks = -(-items // SRD_WARPS)
+    if blocks > 0x7FFFFFFF:
+        raise ValueError(f"srd_attention: {blocks} blocks exceed a grid's 2^31 - 1")
+    return SrdPlan(s, tile, tiles, chunks, items, blocks)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _srd_fragments(wk: torch.Tensor) -> torch.Tensor:
+    """``(Cout, K)``, both multiples of 8, as ``csrc/srd_attention.cu``'s B
+    fragments: ``[K // 8][Cout // 8][lane][2]``, entry (lane, j) holding k =
+    8 kk + 2 (lane % 4) + j and cout = 8 nb + lane // 4.  Channels 2t and 2t +
+    1 of a chunk sit in one lane: TF32 reads them as k-columns t and t + 4,
+    bf16 as one register's pair."""
+    co, k = wk.shape
+    return (wk.reshape(co // 8, 8, k // 8, 4, 2)      # nb, g, kk, t, j
+            .permute(2, 0, 1, 3, 4).reshape(k // 8, co // 8, 32, 2))
+
+
+def _tf32_hi(v: torch.Tensor) -> torch.Tensor:
+    """v with its 13 low mantissa bits cleared (``csrc/mma.cuh::split_tf32``'s hi)."""
+    return (v.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _bf16_words(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Two bf16 tensors as one of 32-bit words, ``lo`` in the low half, held
+    as float32 bits (a finite bf16 in the high half keeps the word finite)."""
+    bits = lambda v: v.contiguous().view(torch.int16).to(torch.int32) & 0xFFFF
+    return (bits(lo) | bits(hi) << 16).view(torch.float32)
+
+
+def _srd_sections(wk: torch.Tensor) -> tuple:
+    """One product's weights ``(Cout, K)`` in both of the kernel's sections:
+    TF32 ``[chunk][n-tile][lane]{hi0, hi1, lo0, lo1}``, lo = w - hi exactly;
+    bf16 chunk pairs ``[q][n-tile][lane]{hi(2q), hi(2q+1), lo(2q), lo(2q+1)}``
+    then an odd last chunk ``[n-tile][lane]{hi, lo}``, each a word of two
+    bf16 (j = 0 low), hi = bf16(w), lo = bf16(w - hi)."""
+    fr = _srd_fragments(wk.float())
+    hi = _tf32_hi(fr)
+    tf32 = torch.cat([hi, fr - hi], dim=-1).reshape(-1)
+    bh = fr.to(torch.bfloat16)
+    bl = (fr - bh.float()).to(torch.bfloat16)
+    wh, wl = _bf16_words(bh[..., 0], bh[..., 1]), _bf16_words(bl[..., 0], bl[..., 1])
+    pairs = wh.shape[0] // 2
+    parts = [torch.stack([wh[0:2 * pairs:2], wh[1:2 * pairs:2], wl[0:2 * pairs:2],
+                          wl[1:2 * pairs:2]], dim=-1).reshape(-1)]
+    if wh.shape[0] % 2:
+        parts.append(torch.stack([wh[-1], wl[-1]], dim=-1).reshape(-1))
+    return tf32, torch.cat(parts)
+
+
+def srd_params_size(c: int) -> int:
+    """Floats in ``srd_attention_params``' buffer: 8 C^2 TF32, 4 C^2 bf16 words."""
+    return 12 * c * c
+
+
+def srd_attention_params(f: torch.Tensor, wn: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
+    """The fp32 buffer ``csrc/srd_attention.cu`` reads, on f's device: the
+    TF32 section (Wn, then W1) and the bf16 section (Wn, then W1), each
+    product as ``_srd_sections`` lays it out.  Wn's K order is k = dn C +
+    cin (tap dn = 0 the previous slice), W1's k = cin."""
+    if wn.device != f.device or w1.device != f.device:
+        raise ValueError(f"parameters on {wn.device}, activations on {f.device}")
+    c = wn.shape[0]
+    tn, bn = _srd_sections(wn.reshape(c, c, 3).permute(0, 2, 1).reshape(c, 3 * c))
+    t1, b1 = _srd_sections(w1.reshape(c, c))
+    return torch.cat([tn, t1, bn, b1])
+
+
+def srd_attention_residual(f: torch.Tensor, wn: torch.Tensor, w1: torch.Tensor, *,
+                           params: torch.Tensor | None = None) -> torch.Tensor:
     """f ``(B, C, N, H, W)``; wn ``(C, C, 3, 1, 1)``; w1 ``(C, C, 1, 1, 1)``; both
-    bias-free.  The kernel takes C in 8, 16, 32 and any B, N, H, W >= 1."""
+    bias-free.  The kernel takes C in 8, 16, 32 and any B, N, H, W >= 1.
+    ``params``: the same weights already packed (``srd_attention_params``,
+    kept by a ``ParamCache``); without it they are packed on this call."""
     _check_act(f)
     c = f.shape[1]
     _check_param(wn, (c, c, 3, 1, 1), "wn")
@@ -450,12 +574,14 @@ def srd_attention_residual(f: torch.Tensor, wn: torch.Tensor, w1: torch.Tensor
         raise _unsupported(f)
     lib, stream = _cuda_args(f, _KERNEL_CHANNELS, name="srd_attention_residual", reads=(wn, w1))
     b, _, n, h, wd = f.shape
-    wn, w1 = _param(wn, f), _param(w1, f)
+    params = (srd_attention_params(f, wn, w1) if params is None
+              else _check_params(params, f, srd_params_size(c)))
+    plan = srd_attention_plan(b, c, n, h * wd, f.dtype == torch.bfloat16, _sm_count(f.device))
     y = torch.empty_like(f)
     with torch.cuda.device(f.device):
         err = lib.dffx_srd_attention_residual(
-            f.data_ptr(), wn.data_ptr(), w1.data_ptr(), y.data_ptr(),
-            b, c, n, h, wd, _DTYPES[f.dtype], stream)
+            f.data_ptr(), params.data_ptr(), y.data_ptr(), b, c, n, h, wd,
+            plan.slices, plan.blocks, _DTYPES[f.dtype], stream)
     _raise_on(err, "srd_attention_residual")
     launches["srd_attention_residual"] += 1
     return y

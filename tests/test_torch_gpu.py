@@ -242,12 +242,48 @@ def test_rb2d_takes_more_than_65535_slices(cuda, rng, c):
 
 @pytest.mark.parametrize("b,n", [(1, 65537), (65537, 1)], ids=["slices", "batches"])
 def test_srd_attention_takes_more_than_65535_slices_or_stacks(cuda, rng, b, n):
-    """N is walked inside a thread and B is part of the block index."""
+    """The grid splits N into runs of slices (``srd_attention_plan``) and
+    flattens B, the runs and the pixel tiles into one block index: no grid
+    dimension holds B or N."""
     args = (_act(rng, (b, 8, n, 2, 3), cuda), _wt(rng, (8, 8, 3, 1, 1), cuda),
             _wt(rng, (8, 8, 1, 1, 1), cuda))
     got = tk.srd_attention_residual(*args)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, tk.srd_attention_residual_ref(*args), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("c", [8, 16, 32])
+@pytest.mark.parametrize("b,n,h,w", [(1, 10, 40, 72), (2, 9, 45, 101), (1, 2, 7, 5)],
+                         ids=["split_runs", "odd", "tiny"])
+def test_srd_attention_widths_match_twin(cuda, rng, b, n, h, w, c, dtype):
+    """Each width in both dtypes against the fp32 twin on the same rounded
+    input: 16-byte loads (40 x 72), scalar ones (45 x 101, 7 x 5), N split
+    into runs (10 and 9 slices at these sizes)."""
+    f = _act(rng, (b, c, n, h, w), cuda).to(dtype)
+    args = (_wt(rng, (c, c, 3, 1, 1), cuda), _wt(rng, (c, c, 1, 1, 1), cuda))
+    got = tk.srd_attention_residual(f, *args)
+    torch.cuda.synchronize()
+    ref = tk.srd_attention_residual_ref(f.float(), *args)
+    bound = 1e-4 if dtype == torch.float32 else _bf16_bound(ref)
+    assert got.dtype == dtype and (got.float() - ref).abs().max().item() <= bound
+    assert tk.launches["srd_attention_residual"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_srd_attention_kept_params_equal_fresh_ones(cuda, rng, dtype):
+    """The buffer a ParamCache keeps gives the same bits as one packed on the
+    call; another width's buffer is refused."""
+    f = _act(rng, (1, 8, 10, 40, 72), cuda).to(dtype)
+    args = (_wt(rng, (8, 8, 3, 1, 1), cuda), _wt(rng, (8, 8, 1, 1, 1), cuda))
+    cache = tk.ParamCache(tk.srd_attention_params)
+    kept = cache(f, *args)
+    assert cache(f, *args) is kept
+    assert torch.equal(tk.srd_attention_residual(f, *args, params=kept),
+                       tk.srd_attention_residual(f, *args))
+    with pytest.raises(ValueError, match="params"):
+        tk.srd_attention_residual(f, *args, params=torch.zeros(tk.srd_params_size(16),
+                                                               device=cuda))
 
 
 def test_fm_conv_and_motion_head_take_more_than_65535_slices(cuda, rng):
