@@ -36,7 +36,7 @@ def test_port_imports_no_jax_and_no_dffx():
     for new in ("models/packed.py", "sim/simulator.py", "sim/__init__.py", "__main__.py",
                 "utils/doctor.py", "utils/profiling.py", "parallel/__init__.py",
                 "parallel/distributed.py", "parallel/mesh.py", "ops/halo.py",
-                "data/_host_build.py"):
+                "data/_host_build.py", "headline.py"):
         assert PKG / new in files, new
     bad = {(f.relative_to(ROOT).as_posix(), m) for f in files for m in _imported_roots(f)
            if m in FORBIDDEN}
