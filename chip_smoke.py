@@ -136,9 +136,9 @@ end-to-end serving run (as ``train_launches``, in all train steps: 0, as
 in each ``spatial`` case on rank 0, and as ``headline_launches``, over the
 headline's serving and end-to-end points),
 its error against its twin, both times and the bound at the end-to-end path's
-shapes (rb_of_chain: the sum over its three pyramid levels, and each level
-under ``levels``), and for ``fm_conv_bn_relu`` the time of the one PyTorch call
-that computes its function (``torch.cudnn_convolution_relu`` on the BN-folded
+shapes in fp32 and, under ``bf16``, in bf16 (rb_of_chain: the sum over its
+three pyramid levels, and each fp32 level under ``levels``), and for
+``fm_conv_bn_relu`` the time of the one PyTorch call that computes its function (``torch.cudnn_convolution_relu`` on the BN-folded
 weight and shift; fp32, and bf16 under ``library``); the line before it gives the build's
 and the whole run's seconds; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -349,15 +349,15 @@ def kernel_cases(rng, torch, tk, dev):
 
 def phase_kernels(torch, tk, dev) -> dict:
     """Each kernel against its twin, fp32 and bf16; returns, per kernel, its
-    fp32 rows at the end-to-end path's shapes.  The compared call packs the
-    weights itself; the timed calls get them packed from a ``ParamCache``, as
-    the modules call the wrappers."""
+    rows at the end-to-end path's shapes, by dtype ("float32", "bfloat16").
+    The compared call packs the weights itself; the timed calls get them
+    packed from a ``ParamCache``, as the modules call the wrappers."""
     import numpy as np
 
     from dffx_torch.headline import gate_bound
 
     rng = np.random.default_rng(0)
-    path = {name: [] for name in REPLACES}
+    path = {name: {"float32": [], "bfloat16": []} for name in REPLACES}
     for name, tag, args in kernel_cases(rng, torch, tk, dev):
         kernel, twin = getattr(tk, name), getattr(tk, f"{name}_ref")
         for dtype in (torch.float32, torch.bfloat16):
@@ -387,8 +387,8 @@ def phase_kernels(torch, tk, dev) -> dict:
                    "ms_over_bound": ms / least_ms}
             emit(row)
             check(err <= bound, f"{name} {tag} {dtype}: error {err} > {bound}")
-            if tag.startswith("e2e") and dtype == torch.float32:
-                path[name].append(row)
+            if tag.startswith("e2e"):
+                path[name][row["dtype"]].append(row)
     return path
 
 
@@ -430,14 +430,15 @@ def fm_conv_library(torch, tk, dev) -> dict:
     return out
 
 
-def kernel_entry(name: str, rows: list, launches: int, train_launches: int,
+def kernel_entry(name: str, rows: dict, launches: int, train_launches: int,
                  cli_launches: dict, library: dict | None = None,
                  spatial_launches: dict | None = None,
                  headline_launches: int | None = None) -> dict:
     """One kernel of the result line: its fp32 rows at the end-to-end path's
-    shapes summed; a kernel with several (rb_of_chain's three pyramid levels)
-    also lists each under ``levels``.  ``launches``: in the end-to-end serving
-    run; ``train_launches``: in every train step (one process and data
+    shapes summed (``rows``: those rows by dtype); a kernel with several
+    (rb_of_chain's three pyramid levels) also lists each under ``levels``;
+    ``bf16``: its bf16 rows there, summed the same way.  ``launches``: in the
+    end-to-end serving run; ``train_launches``: in every train step (one process and data
     parallel); ``cli_launches``: in each command line's measured run
     (``train_cli`` and ``dp_train_cli``: their validation forwards);
     ``spatial_launches``: on rank 0 of each ``spatial`` case's timed run;
@@ -447,6 +448,7 @@ def kernel_entry(name: str, rows: list, launches: int, train_launches: int,
     ``library``'s fp32 time where one PyTorch call computes the function
     (``fm_conv_library``; its bf16 time under ``library``), else null (see
     ``bound_ms``)."""
+    bf16, rows = rows["bfloat16"], rows["float32"]
     entry = {"name": name, "route": "cuda", "source": REPLACES[name][0],
              "replaces": REPLACES[name][1], "launches": launches,
              "train_launches": train_launches, "cli_launches": cli_launches,
@@ -459,6 +461,9 @@ def kernel_entry(name: str, rows: list, launches: int, train_launches: int,
     if library is not None:
         entry["library"] = library
     entry["ms_over_bound"] = entry["ms"] / entry["bound_ms"]
+    entry["bf16"] = {k: sum(r[k] for r in bf16) for k in ("ms", "plain_ms", "bound_ms")}
+    entry["bf16"]["max_abs_err"] = max(r["max_abs_err"] for r in bf16)
+    entry["bf16"]["ms_over_bound"] = entry["bf16"]["ms"] / entry["bf16"]["bound_ms"]
     if len(rows) > 1:
         entry["levels"] = {r["shape"].removeprefix("e2e_"): {
             k: r[k] for k in ("ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by")}

@@ -12,7 +12,9 @@ takes both C signatures of ``rb2d_residual`` and of ``srd_attention_residual``
 (separate weight pointers in the trees before their redesigns, one packed
 buffer now, and for the attention its grid plan).
 
-* ``kernels``   each kernel against its fp32 twin, fp32 and bf16: the median of
+* ``kernels``   each kernel against its fp32 twin, fp32 and bf16, at its paths'
+                shapes (the serving kernels also at b4 and b128 of 10 x 384 x
+                384, b128's inputs made on the card): the median of
                 single calls through the wrapper and, for the kernels whose
                 wrapper packs the weights in the measured tree, through the
                 wrapper with the packed buffer kept by a ``ParamCache`` (as the
@@ -148,6 +150,9 @@ class Inputs:
         self.rng, self.torch, self.tk, self.dev = np.random.default_rng(0), torch, tk, dev
 
     def act(self, *shape):
+        if shape[0] >= 64:  # b128: 1.5e9 values, made on the card
+            gen = self.torch.Generator(self.dev).manual_seed(int(self.rng.integers(2 ** 31)))
+            return self.torch.rand(shape, generator=gen, device=self.dev) * 2 - 1
         return self.torch.from_numpy(self.rng.uniform(-1, 1, shape).astype("float32")).to(self.dev)
 
     def wt(self, *shape):
@@ -251,6 +256,8 @@ def bench_kernels(np, torch, tk, lib, dev, smi, reps, only=()):
     cases = [("fm_conv_bn_relu", "e2e", mk.fm_conv(*e2e)),
              ("fm_conv_bn_relu", "path", mk.fm_conv(*path)),
              ("fm_conv_bn_relu", "b2_e2e", mk.fm_conv(2, N, EH, EW)),
+             ("fm_conv_bn_relu", "b4", mk.fm_conv(4, N, H, W)),
+             ("fm_conv_bn_relu", "b128", mk.fm_conv(128, N, H, W)),
              ("fm_conv_bn_relu", "ragged", mk.fm_conv(*ragged)),
              ("fm_conv_bn_relu", "odd", mk.fm_conv(*odd)),
              ("motion_head_conv_chain", "e2e", mk.head(*e2e)),
@@ -259,6 +266,8 @@ def bench_kernels(np, torch, tk, lib, dev, smi, reps, only=()):
              ("motion_head_conv_chain", "odd", mk.head(*odd)),
              ("rb2d_residual", "e2e_c8", mk.rb2d(*e2e)),
              ("rb2d_residual", "path_c8", mk.rb2d(*path)),
+             ("rb2d_residual", "b4_c8", mk.rb2d(4, N, H, W)),
+             ("rb2d_residual", "b128_c8", mk.rb2d(128, N, H, W)),
              ("rb2d_residual", "odd_c8", mk.rb2d(*odd)),
              ("rb2d_residual", "ragged_c16", mk.rb2d(*ragged, c=16)),
              ("rb2d_residual", "ragged_c32", mk.rb2d(*ragged, c=32)),

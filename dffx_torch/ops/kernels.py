@@ -56,6 +56,7 @@ __all__ = [
     "head_conv0_layout",
     "pair_conv0_layout",
     "fm_conv_taps",
+    "fm_conv_bf16_taps",
     "fm_conv_layout",
     "fm_conv_params",
     "rb2d_params",
@@ -64,6 +65,7 @@ __all__ = [
     "srd_attention_params",
     "srd_attention_plan",
     "srd_params_size",
+    "rb2d_bf16_words",
     "SrdPlan",
     "ParamCache",
     "tensor_stamp",
@@ -233,6 +235,15 @@ def _use_params(params, x: torch.Tensor, tensors, layouts) -> torch.Tensor:
                                                   tuple(layouts), x.device).numel())
 
 
+def _launch_params(params, x: torch.Tensor, pack, args, plan, bf16_words: int) -> torch.Tensor:
+    """The packed buffer a launch reads: the caller's, after a check of its
+    device, type and size (fp32 as ``plan`` lays it out, bf16 ``bf16_words``),
+    or one packed now (``pack(x, *args)``)."""
+    if x.dtype != torch.bfloat16:
+        return _use_params(params, x, *plan)
+    return pack(x, *args) if params is None else _check_params(params, x, bf16_words)
+
+
 def _pad_value(w: torch.Tensor) -> int:
     """What a layout pads with: 0 in a weight, -1 in a tensor of indices
     (``_gather_index`` sends those to a 0)."""
@@ -293,6 +304,56 @@ def fm_conv_layout(w: torch.Tensor) -> torch.Tensor:
     return _b_fragments(wk[:, fm_conv_taps()])
 
 
+@functools.lru_cache(maxsize=None)
+def _fm_conv_bf16_index(device: torch.device) -> torch.Tensor:
+    """``fm_conv_bf16_taps`` on ``device``, -1 as 243 (the zero column ``fm_conv_params`` appends)."""
+    return fm_conv_bf16_taps().remainder(244).to(device)
+
+
+def fm_conv_bf16_taps() -> torch.Tensor:
+    """The K order of ``csrc/fm_conv.cu`` in bf16: 272 entries, 17 k-steps of
+    16, each the flat tap ``(cin * 9 + ky) * 9 + kx`` or -1 (a zero weight).
+    A k-step is two halves of four k pairs (kx, kx + 1 of one (cin, ky)); slot
+    t of a half holds k = 2t and 2t + 1 of it: R(c, ky) the pairs kx = 2t, 2t +
+    1; Ca(c) kx = 8 (and a zero kx = 9) at ky = t; Cb(c) the same at ky = 4 +
+    t; L (t, 8, 8) for t < 3.  k-steps 5c .. 5c + 4 are R(c, 0) R(c, 1) |
+    R(c, 2) R(c, 3) | R(c, 4) R(c, 5) | R(c, 6) R(c, 7) | R(c, 8) Ca(c); k-step
+    15 is Cb(0) Cb(1), 16 Cb(2) L."""
+    t, e = torch.arange(4)[:, None], torch.arange(2)[None, :]
+
+    def half(c, ky, kx):
+        c, ky, kx = torch.broadcast_tensors(torch.as_tensor(c), torch.as_tensor(ky), kx)
+        return torch.where((kx < 9) & (c < 3), (c * 9 + ky) * 9 + kx, -1).reshape(-1)
+
+    halves = []
+    for c in range(3):
+        halves += [half(c, ky, 2 * t + e) for ky in range(9)] + [half(c, t, 8 + e)]
+    halves += [half(c, 4 + t, 8 + e) for c in range(3)] + [half(t, 8, 8 + e)]
+    return torch.cat(halves)
+
+
+def _bf16_fragments(wk: torch.Tensor) -> torch.Tensor:
+    """``(Cout, K)``, Cout a multiple of 8, as B fragments of ``mma.sync``
+    m16n8k16 bf16 (``csrc/bf16_mma.cuh``), each weight split into hi =
+    bf16(w) and lo = bf16(w - hi): flat ``[K' // 16][Cout // 8][lane][4]``
+    words {hi b0, hi b1, lo b0, lo b1}, K zero-padded to K', a multiple of 16.
+    b0 holds k = 16 s + 2 (lane % 4) and k + 1 (the lower k in the low half,
+    ``_bf16_words``), b1 those k + 8, of cout = 8 nb + lane // 4."""
+    co, k = wk.shape
+    fr = (F.pad(wk.float(), (0, -k % 16)).reshape(co // 8, 8, -1, 2, 4, 2)  # nb, g, s, j, t, e
+          .permute(2, 0, 1, 4, 3, 5))                                       # s, nb, g, t, j, e
+    hi = fr.to(torch.bfloat16)
+    lo = (fr - hi.float()).to(torch.bfloat16)
+    return torch.cat([_bf16_words(hi[..., 0], hi[..., 1]),
+                      _bf16_words(lo[..., 0], lo[..., 1])], dim=-1).reshape(-1)
+
+
+def _same_device(x: torch.Tensor, *tensors) -> None:
+    for t in _tensors(tensors):
+        if t.device != x.device:
+            raise ValueError(f"parameters on {t.device}, activations on {x.device}")
+
+
 def _pad_to_4(v: torch.Tensor) -> torch.Tensor:
     return F.pad(v, (0, -v.numel() % 4), value=_pad_value(v))
 
@@ -301,10 +362,21 @@ def _fm_conv_plan(w, scale, shift):
     return (w, scale, shift), (fm_conv_layout, None, None)
 
 
+#: words of ``fm_conv_params``' bf16 buffer: 17 k-steps of fragments, scale, shift
+FM_CONV_BF16_WORDS = 17 * 128 + 16
+
+
 def fm_conv_params(x: torch.Tensor, w, scale, shift) -> torch.Tensor:
-    """The fp32 buffer ``csrc/fm_conv.cu`` reads, on x's device: w in
-    ``fm_conv_layout``, scale, shift."""
-    return _packed(x, *_fm_conv_plan(w, scale, shift))
+    """The fp32 buffer ``csrc/fm_conv.cu`` reads for x's dtype, on x's
+    device: fp32, w in ``fm_conv_layout``, scale, shift; bf16, w in
+    ``fm_conv_bf16_taps`` order as ``_bf16_fragments`` (hi/lo words), scale,
+    shift."""
+    if x.dtype != torch.bfloat16:
+        return _packed(x, *_fm_conv_plan(w, scale, shift))
+    _same_device(x, w, scale, shift)
+    wk = F.pad(w.float().reshape(8, 243), (0, 1))  # column 243: the zero weight of tap -1
+    return torch.cat([_bf16_fragments(wk[:, _fm_conv_bf16_index(w.device)]),
+                      scale.float(), shift.float()])
 
 
 def _rb2d_plan(w1, aff1: Affine, w2, aff2: Affine):
@@ -312,10 +384,30 @@ def _rb2d_plan(w1, aff1: Affine, w2, aff2: Affine):
             (mma_conv_layout, None, None, mma_conv_layout, None, None))
 
 
+def _tap_major(w: torch.Tensor) -> torch.Tensor:
+    """A (1,3,3) conv ``(Cout, Cin, 1, 3, 3)`` as ``(Cout, 9 Cin)``, k = tap *
+    Cin + cin."""
+    co, ci = w.shape[:2]
+    return w.float().reshape(co, ci, 9).permute(0, 2, 1).reshape(co, 9 * ci)
+
+
+def rb2d_bf16_words(c: int) -> int:
+    """Words of ``rb2d_params``' bf16 buffer at C channels: two convs of
+    ceil(9C / 16) k-steps and C / 8 n-tiles of fragments, s1, b1, b2."""
+    return 2 * -(-9 * c // 16) * (c // 8) * 128 + 3 * c
+
+
 def rb2d_params(x: torch.Tensor, w1, aff1: Affine, w2, aff2: Affine) -> torch.Tensor:
-    """The fp32 buffer ``csrc/rb2d.cu`` reads, on x's device: w1, s1, b1, w2,
-    s2, b2, the convs in ``mma_conv_layout``."""
-    return _packed(x, *_rb2d_plan(w1, aff1, w2, aff2))
+    """The fp32 buffer ``csrc/rb2d.cu`` reads for x's dtype, on x's device:
+    fp32, w1, s1, b1, w2, s2, b2, the convs in ``mma_conv_layout``; bf16, w1
+    and w2 with BN2's scale folded in as ``_bf16_fragments`` of
+    ``_tap_major``, s1, b1, b2."""
+    if x.dtype != torch.bfloat16:
+        return _packed(x, *_rb2d_plan(w1, aff1, w2, aff2))
+    _same_device(x, w1, aff1, w2, aff2)
+    w2s = w2.float() * aff2[0].float().view(-1, 1, 1, 1, 1)
+    return torch.cat([_bf16_fragments(_tap_major(w1)), aff1[0].float(), aff1[1].float(),
+                      _bf16_fragments(_tap_major(w2s)), aff2[1].float()])
 
 
 def _rb_of_chain_plan(blocks: Sequence[OFBlock]):
@@ -372,7 +464,8 @@ def fm_conv_bn_relu(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         raise _unsupported(x)
     lib, stream = _cuda_args(x, name="fm_conv_bn_relu", reads=(w, scale, shift))
     b, _, n, h, wd = x.shape
-    params = _use_params(params, x, *_fm_conv_plan(w, scale, shift))
+    params = _launch_params(params, x, fm_conv_params, (w, scale, shift),
+                            _fm_conv_plan(w, scale, shift), FM_CONV_BF16_WORDS)
     y = torch.empty((b, 8, n, h, wd), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.dffx_fm_conv_bn_relu(
@@ -416,7 +509,8 @@ def rb2d_residual(x: torch.Tensor, w1: torch.Tensor, aff1: Affine, w2: torch.Ten
     lib, stream = _cuda_args(x, _KERNEL_CHANNELS, name="rb2d_residual",
                              reads=(w1, aff1, w2, aff2))
     b, _, n, h, wd = x.shape
-    params = _use_params(params, x, *_rb2d_plan(w1, aff1, w2, aff2))
+    params = _launch_params(params, x, rb2d_params, (w1, aff1, w2, aff2),
+                            _rb2d_plan(w1, aff1, w2, aff2), rb2d_bf16_words(c))
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = lib.dffx_rb2d_residual(

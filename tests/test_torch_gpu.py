@@ -240,6 +240,47 @@ def test_rb2d_takes_more_than_65535_slices(cuda, rng, c):
     torch.testing.assert_close(got, tk.rb2d_residual_ref(*args), atol=1e-4, rtol=0)
 
 
+#: the bf16 designs of fm_conv_bn_relu and rb2d_residual beyond GRID_SHAPES:
+#: W % 8 == 4 (fm_conv stages value by value, rb2d by 8-byte copies) and more
+#: slices than a grid dimension holds; rb2d's other widths at every shape
+BF16_SHAPES = [(1, 3, 45, 100), (1, 65537, 2, 3)]
+BF16_IDS = ["w4", "slices"]
+RB2D_BF16 = ([(8, s) for s in BF16_SHAPES]
+             + [(c, s) for c in (16, 32) for s in GRID_SHAPES + BF16_SHAPES])
+RB2D_BF16_IDS = ([f"c8_{i}" for i in BF16_IDS]
+                 + [f"c{c}_{i}" for c in (16, 32) for i in ["many_tiles", "odd", "strip"] + BF16_IDS])
+
+
+@pytest.mark.parametrize("b,n,h,w", BF16_SHAPES, ids=BF16_IDS)
+def test_fm_conv_bf16_matches_twin(cuda, rng, b, n, h, w):
+    """bf16 in, fp32 inside: the kernel rounds only its output; a kept
+    buffer gives the same bits as one packed on the call."""
+    x = _act(rng, (b, 3, n, h, w), cuda).bfloat16()
+    args = (_wt(rng, (8, 3, 1, 9, 9), cuda), *_aff(rng, 8, cuda))
+    got = tk.fm_conv_bn_relu(x, *args)
+    torch.cuda.synchronize()
+    assert tk.launches["fm_conv_bn_relu"] == 1 and got.dtype == torch.bfloat16
+    assert torch.equal(tk.fm_conv_bn_relu(x, *args, params=tk.fm_conv_params(x, *args)), got)
+    ref = tk.fm_conv_bn_relu_ref(x.float(), *args)
+    assert (got.float() - ref).abs().max().item() <= _bf16_bound(ref)
+
+
+@pytest.mark.parametrize("c,shape", RB2D_BF16, ids=RB2D_BF16_IDS)
+def test_rb2d_bf16_matches_twin(cuda, rng, c, shape):
+    """Each width in bf16 against the fp32 twin on the same rounded input;
+    the fp32 packing's buffer is refused."""
+    x, *args = _rb2d_args(rng, *shape, c, cuda)
+    x = x.bfloat16()
+    got = tk.rb2d_residual(x, *args)
+    torch.cuda.synchronize()
+    assert tk.launches["rb2d_residual"] == 1 and got.dtype == torch.bfloat16
+    assert torch.equal(tk.rb2d_residual(x, *args, params=tk.rb2d_params(x, *args)), got)
+    ref = tk.rb2d_residual_ref(x.float(), *args)
+    assert (got.float() - ref).abs().max().item() <= _bf16_bound(ref)
+    with pytest.raises(ValueError, match="params"):
+        tk.rb2d_residual(x, *args, params=tk.rb2d_params(x.float(), *args))
+
+
 @pytest.mark.parametrize("b,n", [(1, 65537), (65537, 1)], ids=["slices", "batches"])
 def test_srd_attention_takes_more_than_65535_slices_or_stacks(cuda, rng, b, n):
     """The grid splits N into runs of slices (``srd_attention_plan``) and
