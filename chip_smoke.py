@@ -336,6 +336,8 @@ def kernel_cases(rng, torch, tk, dev):
     chains += [(f"ragged_c{ch[-1][1]}", ragged, ch) for _, _, ch in chains]
     chains += [(f"{tag}_fe1", shape, chains[0][2])
                for tag, shape in (("many", many), ("odd", odd), ("tiny", tiny), ("slices", slices))]
+    chains += [(f"{tag}_c{ch[-1][1]}", shape, ch) for _, _, ch in chains[1:3]
+               for tag, shape in (("odd", odd), ("slices", slices))]
     for tag, (b, n, h, w), ch in chains:
         yield "rb_of_chain", tag, (act((b, ch[0][0], n, h, w)), [
             (wt((co, ci, 1, 3, 3)), bn(co), wt((co, co, 1, 3, 3)), bn(co), wt((co, ci, 1, 1, 1)))

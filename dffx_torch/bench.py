@@ -281,7 +281,9 @@ def bench_kernels(np, torch, tk, lib, dev, smi, reps, only=()):
              ("rb_of_chain", "e2e_fe1", mk.chain(*e2e, ((3, 8), (8, 8)))),
              ("rb_of_chain", "odd_fe1", mk.chain(*odd, ((3, 8), (8, 8)))),
              ("rb_of_chain", "e2e_fe2", mk.chain(1, N, EH // 2, EW // 2, ((16, 16),))),
-             ("rb_of_chain", "e2e_fe3", mk.chain(1, N, EH // 4, EW // 4, ((32, 32),)))]
+             ("rb_of_chain", "e2e_fe3", mk.chain(1, N, EH // 4, EW // 4, ((32, 32),))),
+             ("rb_of_chain", "odd_fe2", mk.chain(*odd, ((16, 16),))),
+             ("rb_of_chain", "odd_fe3", mk.chain(*odd, ((32, 32),)))]
     for name, tag, args in cases:
         if only and name not in only:
             continue

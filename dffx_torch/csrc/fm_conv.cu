@@ -149,9 +149,9 @@ fm_conv_bn_relu_kernel(const float* __restrict__ x, const float* __restrict__ pa
         dffx::load_b_split<1>(frag + (c * K + ky) * 32, lane, bh, bl);
 #pragma unroll
         for (int j = 0; j < MG; ++j) {
-          dffx::load_a<false>(row + px[j], ah[j][0], al[j][0]);
-          dffx::load_a<false>(row + px[j] + 8, ah[j][1], al[j][1]);
-          dffx::load_a<false>(row + px[j] + 16, ah[j][3], al[j][3]);
+          dffx::load_a(row + px[j], ah[j][0], al[j][0]);
+          dffx::load_a(row + px[j] + 8, ah[j][1], al[j][1]);
+          dffx::load_a(row + px[j] + 16, ah[j][3], al[j][3]);
           ah[j][2] = ah[j][1];  // (pixel g, tap t + 4) = (pixel g + 8, tap t)
           al[j][2] = al[j][1];
         }

@@ -126,36 +126,26 @@ __device__ __forceinline__ void load_b_split(const float2* __restrict__ bfrag, i
   }
 }
 
-// The two parts of an A value.  BF16: it is a widened bf16, a TF32 already,
-// and has no low part.
-template <bool BF16>
+// the two parts of an A value
 __device__ __forceinline__ void load_a(const float* __restrict__ p, uint32_t& hi, uint32_t& lo) {
-  if constexpr (BF16) {
-    hi = __float_as_uint(p[0]);
-    lo = 0;
-  } else {
-    split_tf32(p[0], hi, lo);
-  }
+  split_tf32(p[0], hi, lo);
 }
 
 // The three products of one k-step for the warp's first nvalid m-tiles:
 // acc[j][nb][0] += A_hi B_hi and acc[j][nb][1] += A_lo B_hi + A_hi B_lo, term
 // by term over all m-tiles and n-tiles: two MMAs into one accumulator are
-// MG * NB MMAs apart, so none waits for the one before it.  Without ALO the A
-// operand has no low part and its term is left out.
-template <int MG, int NB, bool ALO = true>
+// MG * NB MMAs apart, so none waits for the one before it.
+template <int MG, int NB>
 __device__ __forceinline__ void mma_3xtf32(const uint32_t (&ah)[MG][4],
                                            const uint32_t (&al)[MG][4],
                                            const uint32_t (&bh)[NB][2],
                                            const uint32_t (&bl)[NB][2], int nvalid,
                                            float (&acc)[MG][NB][2][4]) {
-  if constexpr (ALO) {
 #pragma unroll
-    for (int j = 0; j < MG; ++j) {
-      if (j < nvalid) {
+  for (int j = 0; j < MG; ++j) {
+    if (j < nvalid) {
 #pragma unroll
-        for (int nb = 0; nb < NB; ++nb) mma_tf32(acc[j][nb][1], al[j], bh[nb][0], bh[nb][1]);
-      }
+      for (int nb = 0; nb < NB; ++nb) mma_tf32(acc[j][nb][1], al[j], bh[nb][0], bh[nb][1]);
     }
   }
 #pragma unroll
@@ -177,7 +167,7 @@ __device__ __forceinline__ void mma_3xtf32(const uint32_t (&ah)[MG][4],
 // One k-step whose A operand thread (g, t) finds at src[pa[j] + o0] (pixel g),
 // src[pb[j] + o0] (pixel g + 8) and, for its second k value, at + o1; pa and
 // pb already hold the thread's own channel plane t.
-template <int MG, int NB, bool BF16 = false>
+template <int MG, int NB>
 __device__ __forceinline__ void mma_kstep_at(const float* __restrict__ src, const int (&pa)[MG],
                                              const int (&pb)[MG], int o0, int o1, int nvalid,
                                              const float2* __restrict__ bfrag, int lane,
@@ -187,19 +177,19 @@ __device__ __forceinline__ void mma_kstep_at(const float* __restrict__ src, cons
 #pragma unroll
   for (int j = 0; j < MG; ++j) {
     if (j < nvalid) {
-      load_a<BF16>(src + pa[j] + o0, ah[j][0], al[j][0]);
-      load_a<BF16>(src + pb[j] + o0, ah[j][1], al[j][1]);
-      load_a<BF16>(src + pa[j] + o1, ah[j][2], al[j][2]);
-      load_a<BF16>(src + pb[j] + o1, ah[j][3], al[j][3]);
+      load_a(src + pa[j] + o0, ah[j][0], al[j][0]);
+      load_a(src + pb[j] + o0, ah[j][1], al[j][1]);
+      load_a(src + pa[j] + o1, ah[j][2], al[j][2]);
+      load_a(src + pb[j] + o1, ah[j][3], al[j][3]);
     }
   }
-  mma_3xtf32<MG, NB, !BF16>(ah, al, bh, bl, nvalid, acc);
+  mma_3xtf32<MG, NB>(ah, al, bh, bl, nvalid, acc);
 }
 
 // acc += the (1,3,3) conv of src ([CIN][.] planes P floats apart, rows SW
 // wide, CIN a multiple of 8) at the warp's m-tiles; w: the conv's packed
 // fragments, [tap][CIN / 8][NB][lane][2]
-template <int CIN, int MG, int NB, int P, int SW, bool BF16 = false>
+template <int CIN, int MG, int NB, int P, int SW>
 __device__ __forceinline__ void conv3x3_mma(const float* __restrict__ src, const int (&pa)[MG],
                                             const int (&pb)[MG], int nvalid,
                                             const float* __restrict__ w, int lane,
@@ -211,8 +201,8 @@ __device__ __forceinline__ void conv3x3_mma(const float* __restrict__ src, const
 #pragma unroll
       for (int kc = 0; kc < CIN / 8; ++kc) {
         const int o = kc * 8 * P + kx;
-        mma_kstep_at<MG, NB, BF16>(src + ky * SW, pa, pb, o, o + 4 * P, nvalid,
-                                   frag + ((ky * 3 + kx) * (CIN / 8) + kc) * NB * 32, lane, acc);
+        mma_kstep_at<MG, NB>(src + ky * SW, pa, pb, o, o + 4 * P, nvalid,
+                             frag + ((ky * 3 + kx) * (CIN / 8) + kc) * NB * 32, lane, acc);
       }
     }
   };
@@ -298,8 +288,7 @@ __host__ __device__ constexpr int region_mg(int npos, int nw, int cap) {
 // ---------------------------------------------------------------------------
 
 // The input tile [CI][IH][IW] (planes P apart, rows SW apart) of slice base,
-// (0, 0) at image pixel (gh0, gw0), 0 outside the image: fp32 by cp.async,
-// bf16 widened through registers.
+// (0, 0) at image pixel (gh0, gw0), 0 outside the image, by cp.async.
 template <int CI, int IH, int IW, int P, int NT, int SW = IW>
 __device__ __forceinline__ void stage_tile(const float* __restrict__ x, int64_t base,
                                            int64_t cstride, float* __restrict__ dst, int gh0,
@@ -311,21 +300,6 @@ __device__ __forceinline__ void stage_tile(const float* __restrict__ x, int64_t 
     const bool inside = in_image(gh, gw, H, W);
     const float* src = inside ? x + base + c * cstride + (int64_t)gh * W + gw : x;
     cp_async4(dst + c * P + row * SW + col, src, inside ? 4 : 0);
-  }
-}
-
-template <int CI, int IH, int IW, int P, int NT, int SW = IW>
-__device__ __forceinline__ void stage_tile(const __nv_bfloat16* __restrict__ x, int64_t base,
-                                           int64_t cstride, float* __restrict__ dst, int gh0,
-                                           int gw0, int H, int W) {
-#pragma unroll 4
-  for (int i = threadIdx.x; i < CI * IH * IW; i += NT) {
-    const int c = i / (IH * IW), r = i % (IH * IW);
-    const int row = r / IW, col = r % IW;
-    const int gh = gh0 + row, gw = gw0 + col;
-    dst[c * P + row * SW + col] = in_image(gh, gw, H, W)
-                                      ? load(x, base + c * cstride + (int64_t)gh * W + gw)
-                                      : 0.f;
   }
 }
 
@@ -348,32 +322,10 @@ __device__ __forceinline__ void stage_tile_vec(const float* __restrict__ x, int6
   }
 }
 
-// The same tile from bf16, under the same conditions: 8-byte loads of 4
-// values, widened (a bf16 is the high half of its fp32) and stored as 16 bytes.
-template <int CI, int IH, int IW, int P, int NT, int SW = IW>
-__device__ __forceinline__ void stage_tile_vec(const __nv_bfloat16* __restrict__ x, int64_t base,
-                                               int64_t cstride, float* __restrict__ dst,
-                                               int gh0, int gw0, int H, int W) {
-  static_assert(IW % 4 == 0 && SW % 4 == 0 && P % 4 == 0, "16-byte stores");
-#pragma unroll 4
-  for (int i = threadIdx.x; i < CI * IH * (IW / 4); i += NT) {
-    const int c = i / (IH * (IW / 4)), r = i % (IH * (IW / 4));
-    const int row = r / (IW / 4), col = r % (IW / 4) * 4;
-    const int gh = gh0 + row, gw = gw0 + col;
-    uint2 raw = make_uint2(0u, 0u);
-    if (in_image(gh, gw, H, W)) {
-      raw = *reinterpret_cast<const uint2*>(x + base + c * cstride + (int64_t)gh * W + gw);
-    }
-    *reinterpret_cast<float4*>(dst + c * P + row * SW + col) =
-        make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
-                    __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
-  }
-}
-
 // The tile by the widest copies x allows.  vec: x is 16-byte aligned and W a
 // multiple of 4 (vec_ok).
-template <int CI, int IH, int IW, int P, int NT, int SW = IW, typename T>
-__device__ __forceinline__ void stage_tile_any(const T* __restrict__ x, int64_t base,
+template <int CI, int IH, int IW, int P, int NT, int SW = IW>
+__device__ __forceinline__ void stage_tile_any(const float* __restrict__ x, int64_t base,
                                                int64_t cstride, float* __restrict__ dst,
                                                int gh0, int gw0, int H, int W, bool vec) {
   if (vec) {

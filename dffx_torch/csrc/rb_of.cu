@@ -12,16 +12,18 @@
 // not 0 wherever a BN shift is positive (the TPU kernel masks the same
 // positions with store_masked).
 //
-// What bounds it on the card: a C -> C block is 19 C^2 FMAs per pixel (9.7
-// kFLOP at C = 16, 38.9 at C = 32) against 8 C bytes of fp32 traffic, 76 and
-// 152 FLOP/byte, and the pair 2,032 FMAs per pixel against 44 bytes, 92
+// fp32 and bf16 have a design each.
+//
+// fp32.  What bounds it on the card: a C -> C block is 19 C^2 FMAs per pixel
+// (9.7 kFLOP at C = 16, 38.9 at C = 32) against 8 C bytes of fp32 traffic, 76
+// and 152 FLOP/byte, and the pair 2,032 FMAs per pixel against 44 bytes, 92
 // FLOP/byte: arithmetic bounds all three levels, not HBM.  On the fp32 FMA
 // pipe (67 TFLOP/s) the shared-memory reads that feed the FMAs bound them
 // first: the first design read 9 words per 32 FMAs at C = 32 and one word per
 // 8 FMAs in the pair, on 32 x 8 tiles with every weight restaged for every
 // tile.
 //
-// What the design does about it:
+// What the fp32 design does about it:
 // * The convs run on the tensor cores as implicit GEMMs (M = the tile's
 //   pixels, N = Cout, K = 9 Cin): mma.sync m16n8k8 with TF32 operands.  Plain
 //   TF32 misses the fp32 bound by 25-55x, so each operand is split into two
@@ -29,8 +31,7 @@
 //   and a product is hi.hi + hi.lo + lo.hi (3xTF32): fp32 accuracy at a third
 //   of the TF32 rate, still well above the FMA pipe.  The tensor cores
 //   truncate each sum they accumulate, so the small terms go to an
-//   accumulator of their own (mma.cuh::mma_3xtf32).  A bf16 input is a TF32
-//   already: the convs that read it have no lo.hi term.
+//   accumulator of their own (mma.cuh::mma_3xtf32).
 // * Persistent grids (blocks per SM from the occupancy API) walk the tiles;
 //   each block copies the weights into shared memory once, already in
 //   B-fragment order (the wrapper packs them), with 16-byte cp.async, and the
@@ -55,16 +56,63 @@
 //   FMAs a pixel in its conv2's epilogue, block 1's one k-step into conv2's
 //   accumulators.  A warp takes two m-tiles a round (with four, 1.21 against
 //   1.14 ms; three blocks per SM at 80 registers spill: 2.1 ms).
-// Measured on the H100 (700 W), kernel alone, in fp32 and bf16: the pair 1.06
-// to 1.07 and 1.05 to 1.07 ms at 1 x 3 x 10 x 608 x 1088 (the FMA design in the
-// same run: 1.82-1.84 both), 96 TFLOP/s of TF32 MMAs; 0.46 and 0.38 ms at
-// 1 x 16 x 10 x 304 x 544, 0.37 and 0.38 at 1 x 32 x 10 x 152 x 272 (with
-// cvt.rna.tf32.f32 for the splits and one m-tile per k-step at a time: 0.56
-// and 0.47 in fp32).  The instructions around the MMAs and the barriers
-// between the stages bound it, not the tensor cores, which bare mma.sync
-// drives to 328 TFLOP/s on this card (dffx_torch/bench.py --what mma).
-#include <type_traits>
-
+// Measured on the H100 (700 W), kernel alone: the pair 1.06 to 1.07 ms at
+// 1 x 3 x 10 x 608 x 1088 (the FMA design in the same run: 1.82-1.84), 96
+// TFLOP/s of TF32 MMAs; 0.46 ms at 1 x 16 x 10 x 304 x 544, 0.37 at 1 x 32 x
+// 10 x 152 x 272 (with cvt.rna.tf32.f32 for the splits and one m-tile per
+// k-step at a time: 0.56 and 0.47).  The instructions around the MMAs and the
+// barriers between the stages bound it, not the tensor cores, which bare
+// mma.sync drives to 328 TFLOP/s on this card (dffx_torch/bench.py --what mma).
+//
+// bf16.  What bounds it on the card: the function is 19 C^2 bf16 products a
+// pixel at C = 16 and 32 against 4C bytes, and the pair's 2,032 against 22
+// bytes: at FlowNetwork's shapes HBM bounds the pair and the 16-channel block
+// (0.043 and 0.032 ms), the tensor cores the 32-channel one (0.016 ms at 989
+// TFLOP/s).  Done fp32-accurately (bf16 in, fp32 inside, only the output
+// rounded: bf16_mma.cuh) a conv of the exact input is x.w_hi + x.w_lo and a
+// conv of an fp32 intermediate hi.w_hi + hi.w_lo + lo.w_hi, on m16n8k16; the
+// fp32 design on widened bf16 ran two and three TF32 MMAs of half the k
+// (1.04 / 0.37 / 0.37 ms for the three levels).
+//
+// What the bf16 design does about it:
+// * The 16- and 32-channel blocks are bf16_res_block.cuh with the projection
+//   (rb2d.cu's bf16 block, whose notes give the tile plan): Ws x is one k16
+//   step at C = 16 and two at C = 32 of the pixel-major input tile's centre,
+//   by ldmatrix, into conv2's accumulators.  Tiles as rb2d's: 32 x 16 at C =
+//   16 (111 KB, two blocks an SM), 32 x 8 at C = 32 (185 KB, one).
+// * The pair keeps the fp32 design's tile, stages and m-tile rounds (two a
+//   warp, as in fp32: with at most three a round 0.751 ms, four 0.816 with
+//   172 bytes of spills, against 0.738 with two, in one run).  The
+//   raw bf16 tile ([3][24][40], from column tw0 - 4) arrives by 8-byte
+//   cp.async while the last tile's stages run; one pass rewrites it as two
+//   words a pixel, channels (0, 1) and (2, a zero), rows 42 pixels apart.
+// * Block 0's conv1 has K = 27 over three channels, and an m16n8k16 A
+//   register holds two consecutive k: k = 4 tap + channel makes a pixel's
+//   two words the k pairs of a tap, so K = 36 is two k16 steps and a k8
+//   (kernels.py::rb_of_chain_params), whose A words a thread finds through
+//   five offsets it computes once; a pair past tap 8 reads tap 8's words
+//   against zero weights.  Taps 2t and 2t + 1 of one row are one word apart,
+//   and rows 42 = 10 (mod 16) pixels apart keep a k-step whose taps span two
+//   rows free of bank conflicts.
+// * Block 0's 3 -> 8 shortcut is one k8 step of the same words at the centre
+//   (pairs 2 and 3 read them again against zero weights), block 1's 8 -> 8
+//   one k8 step of out0's hi and lo planes by ldmatrix, each into conv2's
+//   accumulators; BN2's scale is folded into both w2 by the wrapper.
+// * The three 8 -> 8 convs follow rb2d's C = 8 plan: four k16 steps and a k8
+//   from hi and lo planes of [pixels][8] that each stage writes once (0
+//   outside the image), ldmatrix fragments, rows 44, 42 and 40 pixels apart
+//   (each = its reader's region rows, mod 8).
+// A 32 x 16 tile takes, in m16n8k16 MMAs (a k8 step counted as half), 265
+// in block 0's conv1, 652 in its shortcut and conv2, 527 in block 1's conv1,
+// 480 in its shortcut and conv2; 128 registers (the bound of two 8-warp
+// blocks an SM), no spills, 82 KB of shared memory.  The 16-channel block
+// takes 3,260 a 32 x 16 tile and 128 registers, the 32-channel one 6,880 a
+// 32 x 8 tile and 181 registers, no spills.
+// Measured on an NVIDIA H100 80GB HBM3 (700.00 W), launches back to back
+// (dffx_torch/bench.py --what kernels): 0.738 ms at 1 x
+// 3 x 10 x 608 x 1088, 0.210 at 1 x 16 x 10 x 304 x 544, 0.178 at 1 x 32 x 10
+// x 152 x 272; by those counts 138, 205 and 271 TFLOP/s of bf16 MMAs.
+#include "bf16_res_block.cuh"
 #include "res_block.cuh"
 
 namespace {
@@ -138,12 +186,10 @@ struct Conv8 {
 // Persistent: block i takes tiles i, i + gridDim.x, ...; tile index =
 // (b * N + n) * tiles_h * tiles_w + ty * tiles_w + tx.
 // vec: the input tile by 16-byte copies (W % 4 == 0, x 16-byte aligned).
-template <typename T>
 __global__ void __launch_bounds__(NT, MINB)
-rb_of_pair_kernel(const T* __restrict__ x, const float* __restrict__ params, T* __restrict__ y,
-                  int N, int H, int W, int tiles_w, int tiles_h, int ntiles, bool vec) {
-  // a widened bf16 is a TF32 already: block 0's conv1 has no lo.hi term
-  constexpr bool BF16_IN = !std::is_same<T, float>::value;
+rb_of_pair_kernel(const float* __restrict__ x, const float* __restrict__ params,
+                  float* __restrict__ y, int N, int H, int W, int tiles_w, int tiles_h,
+                  int ntiles, bool vec) {
   extern __shared__ __align__(16) float smem[];
   float* in_s = smem + P::IN;
   float* mid = smem + P::MID;
@@ -214,8 +260,8 @@ rb_of_pair_kernel(const T* __restrict__ x, const float* __restrict__ params, T* 
             region_offsets<rw(0), P::IW>(p1, 0, pb);
 #pragma unroll
             for (int s = 0; s < K0_STEPS; ++s) {
-              mma_kstep_at<MG, 1, BF16_IN>(in_s, pa, pb, k0[s][0], k0[s][1], nvalid,
-                                           frag + s * 32, lane, acc);
+              mma_kstep_at<MG, 1>(in_s, pa, pb, k0[s][0], k0[s][1], nvalid, frag + s * 32,
+                                  lane, acc);
             }
           },
           [&](int p, int co, float v) { put(p, co, fmaxf(fmaf(v, s1[co], b1[co]), 0.f)); });
@@ -284,10 +330,9 @@ rb_of_pair_kernel(const T* __restrict__ x, const float* __restrict__ params, T* 
   cp_async_wait_all();
 }
 
-template <typename T>
 cudaError_t launch_pair(const void* x, const void* params, void* y, int B, int N, int H, int W,
                         cudaStream_t stream) {
-  const auto kernel = rb_of_pair_kernel<T>;
+  const auto kernel = rb_of_pair_kernel;
   const int bytes = P::END * static_cast<int>(sizeof(float));
   const int tiles_w = (W + TW - 1) / TW, tiles_h = (H + TH - 1) / TH;
   const int64_t ntiles = (int64_t)B * N * tiles_w * tiles_h;
@@ -295,24 +340,311 @@ cudaError_t launch_pair(const void* x, const void* params, void* y, int B, int N
   const cudaError_t err = dffx::persistent_grid(kernel, NT, bytes, ntiles, &grid);
   if (err != cudaSuccess) return err;
   kernel<<<grid, NT, bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(params), static_cast<T*>(y), N, H, W,
-      tiles_w, tiles_h, static_cast<int>(ntiles), dffx::vec_ok(x, W));
+      static_cast<const float*>(x), static_cast<const float*>(params), static_cast<float*>(y),
+      N, H, W, tiles_w, tiles_h, static_cast<int>(ntiles), dffx::vec_ok(x, W));
   return cudaGetLastError();
 }
 
 // the pair, or one C -> C block: res_block.cuh with the projection shortcut and
 // the block's 2-pixel halo, <T, C, tile height, warps, blocks per SM, true, 2>
-template <typename T>
-cudaError_t dispatch(int cin, int cout, int nblocks, const void* x, const void* params,
-                     void* y, int B, int N, int H, int W, cudaStream_t stream) {
+cudaError_t dispatch_fp32(int cin, int cout, int nblocks, const void* x, const void* params,
+                          void* y, int B, int N, int H, int W, cudaStream_t stream) {
+  using dffx::launch_res_block;
   if (cin == 3 && cout == 8 && nblocks == 2) {
-    return launch_pair<T>(x, params, y, B, N, H, W, stream);
+    return launch_pair(x, params, y, B, N, H, W, stream);
   }
   if (cin == 16 && cout == 16 && nblocks == 1) {
-    return dffx::launch_res_block<T, 16, 16, 8, 2, true, 2>(x, params, y, B, N, H, W, stream);
+    return launch_res_block<16, 16, 8, 2, true, 2>(x, params, y, B, N, H, W, stream);
   }
   if (cin == 32 && cout == 32 && nblocks == 1) {
-    return dffx::launch_res_block<T, 32, 8, 8, 1, true, 2>(x, params, y, B, N, H, W, stream);
+    return launch_res_block<32, 8, 8, 1, true, 2>(x, params, y, B, N, H, W, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// bf16: the pair
+// ---------------------------------------------------------------------------
+
+// Shared-memory plan of the bf16 pair.  Parameters as the wrapper packs them
+// (kernels.py::rb_of_chain_params of a bf16 x), per block w1, s1, b1, w2 with
+// BN2's scale folded in, b2, ws, each conv and shortcut as _bf16_fragments:
+// block 0's w1 in conv0's K order (k = 4 tap + channel, channel 3 a zero: two
+// k16 steps and a k8), its ws as one k8 step (k = channel), the 8 -> 8 convs
+// as four k16 steps and a k8 (k = 8 tap + channel), block 1's ws as one k8
+// step.  Shared memory holds them as they come, then the raw input tile
+// [3][IH][IW], the input tile as two words a pixel, (c0, c1) and (c2, 0), the
+// conv1 regions (they share a buffer) and block 0's output as hi and lo planes
+// of [pixels][8].  Rows are XS, S0, S1 and S2 pixels apart: each = its
+// reader's region rows (mod 8), so that the eight rows of an ldmatrix lie in
+// eight bank groups; XS = 10 (mod 16), so that conv0's word loads, whose two
+// taps a k-step may take from two rows, do too.
+struct PB {
+  static constexpr int IH = TH + 8, IW = TW + 8;
+  static constexpr int XS = 42, S0 = 44, S1 = 42, S2 = 40;
+  static constexpr int K0S = 3, F8 = 5 * 128;  // k-steps of conv0; words of an 8 -> 8 conv
+  static constexpr int W1A = 0, S1A = W1A + K0S * 128, B1A = S1A + C, W2A = B1A + C,
+                       B2A = W2A + F8, WSA = B2A + C;
+  static constexpr int W1B = WSA + 128, S1B = W1B + F8, B1B = S1B + C, W2B = B1B + C,
+                       B2B = W2B + F8, WSB = B2B + C, WEND = WSB + 128;
+  static constexpr int MIDW = 4 * (rh(0) * S0 > rh(2) * S2 ? rh(0) * S0 : rh(2) * S2);
+  static constexpr int OUTW = 4 * rh(1) * S1;
+  static constexpr int RAW = WEND, XIN = RAW + CIN * IH * IW / 2, MIDH = XIN + 2 * IH * XS,
+                       MIDL = MIDH + MIDW, OUTH = MIDL + MIDW, OUTL = OUTH + OUTW,
+                       END = OUTL + OUTW;
+  static_assert(S0 % 8 == rw(1) % 8 && S1 % 8 == rw(2) % 8 && S2 % 8 == rw(3) % 8 &&
+                    XS % 16 == 10,
+                "conflict-free rows");
+  static_assert(XS >= IW && S0 >= rw(0) && S1 >= rw(1) && S2 >= rw(2), "rows fit");
+  static_assert(WEND % 4 == 0 && XIN % 4 == 0 && MIDH % 4 == 0 && OUTH % 4 == 0,
+                "16-byte copies and ldmatrix rows");
+};
+
+// Persistent: block i takes tiles i, i + gridDim.x, ...; tile index =
+// (b * N + n) * tiles_h * tiles_w + ty * tiles_w + tx.  vec: the raw tile by
+// 8-byte cp.async (W % 4 == 0, x 8-byte aligned).
+__global__ void __launch_bounds__(NT, MINB)
+rb_of_pair_bf16_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ params,
+                       __nv_bfloat16* __restrict__ y, int N, int H, int W, int tiles_w,
+                       int tiles_h, int ntiles, bool vec) {
+  using dffx::conv3x3_hilo;
+  using dffx::conv_b;
+  using dffx::region_mma_bf16;
+  using dffx::store_hilo;
+  extern __shared__ __align__(16) float smem[];
+  __nv_bfloat16* raw = reinterpret_cast<__nv_bfloat16*>(smem + PB::RAW);
+  uint32_t* xin = reinterpret_cast<uint32_t*>(smem + PB::XIN);
+  uint32_t* midh = reinterpret_cast<uint32_t*>(smem + PB::MIDH);
+  uint32_t* midl = reinterpret_cast<uint32_t*>(smem + PB::MIDL);
+  uint32_t* outh = reinterpret_cast<uint32_t*>(smem + PB::OUTH);
+  uint32_t* outl = reinterpret_cast<uint32_t*>(smem + PB::OUTL);
+  const uint32_t midh_at = dffx::smem_addr(midh), midl_at = dffx::smem_addr(midl);
+  const uint32_t outh_at = dffx::smem_addr(outh), outl_at = dffx::smem_addr(outl);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int64_t hw = (int64_t)H * W;
+  const int64_t cstride = (int64_t)N * hw;
+  const int per_slice = tiles_w * tiles_h;
+  auto stage = [&](int tile) {
+    const int bn = tile / per_slice, r = tile % per_slice;
+    dffx::stage_bf16<CIN, PB::IH, PB::IW, NT, 4>(
+        x, ((int64_t)(bn / N) * CIN * N + bn % N) * hw, cstride, raw, r / tiles_w * TH - 4,
+        r % tiles_w * TW - 4, H, W, vec);
+  };
+
+  for (int i = threadIdx.x; i < PB::WEND / 4; i += NT) cp_async16(smem + 4 * i, params + 4 * i);
+  stage(blockIdx.x);
+  cp_async_commit();
+
+  // Block 0's conv1 reads pair q = 2 tap + word of a pixel's two words: thread
+  // t takes pair 8 s + t (a0, a1) and 8 s + 4 + t (a2, a3) of k16 step s, pair
+  // 16 + t of the k8 step, as word k0[2 s (+ 1)] from its pixel's first word.
+  // A pair past tap 8 (zero weights) reads tap 8's words: an element of the
+  // tile, never a word that nothing wrote.
+  int k0[5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    const int q = 4 * i + t, tap = min(q / 2, 8);
+    k0[i] = 2 * (tap / 3 * PB::XS + tap % 3) + q % 2;
+  }
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int bn = tile / per_slice, r = tile % per_slice;
+    const int th0 = r / tiles_w * TH, tw0 = r % tiles_w * TW;
+    cp_async_wait_all();
+    __syncthreads();  // the raw tile is in; no warp reads the input words or the regions
+
+    // the raw tile as two words a pixel
+    {
+      constexpr int PIX = PB::IH * PB::IW;
+      const unsigned short* r16 = reinterpret_cast<const unsigned short*>(raw);
+      for (int i = threadIdx.x; i < PIX; i += NT) {
+        reinterpret_cast<uint2*>(xin)[i / PB::IW * PB::XS + i % PB::IW] =
+            make_uint2(r16[i] | static_cast<uint32_t>(r16[PIX + i]) << 16, r16[2 * PIX + i]);
+      }
+    }
+    __syncthreads();  // the input words are complete, and the raw buffer is free
+    if (tile + gridDim.x < ntiles) stage(tile + gridDim.x);
+    cp_async_commit();
+
+    // whether position p of region reg (rows rwid wide) lies in the image:
+    // region reg's (0, 0) is image pixel (th0 - 3 + reg, tw0 - 3 + reg)
+    auto inside = [&](int reg, int rwid, int p) {
+      return dffx::in_image(th0 - 3 + reg + p / rwid, tw0 - 3 + reg + p % rwid, H, W);
+    };
+
+    // block 0's conv1 (3 -> 8): x.w_hi + x.w_lo -> BN1 -> ReLU into mid
+    // (region 0, rows S0); position (ry, rx) reads the input from (ry, rx)
+    {
+      constexpr int MG = mg(0), NPOS = npos(0);
+      const float* s1 = smem + PB::S1A;
+      const float* b1 = smem + PB::B1A;
+      region_mma_bf16<NW, MG, 1, NPOS>(
+          warp, lane,
+          [&](const int(&m0)[MG], int nvalid, float(&acc)[MG][1][4]) {
+            int pa[MG], pb[MG];  // pixels g and g + 8: their first words at tap (0, 0)
+#pragma unroll
+            for (int j = 0; j < MG; ++j) {
+              const int p = min(m0[j] + g, NPOS - 1), q = min(m0[j] + g + 8, NPOS - 1);
+              pa[j] = 2 * (p / rw(0) * PB::XS + p % rw(0));
+              pb[j] = 2 * (q / rw(0) * PB::XS + q % rw(0));
+            }
+#pragma unroll
+            for (int s = 0; s < PB::K0S; ++s) {
+              const bool k8 = s == PB::K0S - 1;
+              uint4 b[1];
+              conv_b<1>(smem + PB::W1A, s, lane, b);
+              uint32_t a[MG][4];
+#pragma unroll
+              for (int j = 0; j < MG; ++j) {
+                if (j >= nvalid) continue;
+                a[j][0] = xin[pa[j] + k0[2 * s]];
+                a[j][1] = xin[pb[j] + k0[2 * s]];
+                if (!k8) {
+                  a[j][2] = xin[pa[j] + k0[2 * s + 1]];
+                  a[j][3] = xin[pb[j] + k0[2 * s + 1]];
+                }
+              }
+              dffx::mma_bf16_split_b(a, b, nvalid, k8, acc);
+            }
+          },
+          [&](int p, int co, float v0, float v1) {
+            const bool in = inside(0, rw(0), p);
+            v0 = in ? fmaxf(fmaf(v0, s1[co], b1[co]), 0.f) : 0.f;
+            v1 = in ? fmaxf(fmaf(v1, s1[co + 1], b1[co + 1]), 0.f) : 0.f;
+            store_hilo<C>(midh, midl, p / rw(0) * PB::S0 + p % rw(0), co, v0, v1);
+          });
+    }
+    __syncthreads();
+
+    // block 0's 3 -> 8 shortcut on the input's centre (one k8 step: pairs 0
+    // and 1 are a pixel's two words, 2 and 3 meet zero weights and read them
+    // again), then conv2 (BN2's scale in its weights) from mid, + BN2's shift,
+    // ReLU, into out0 (region 1, rows S1)
+    {
+      constexpr int MG = mg(1), NPOS = npos(1);
+      const float* b2 = smem + PB::B2A;
+      region_mma_bf16<NW, MG, 1, NPOS>(
+          warp, lane,
+          [&](const int(&m0)[MG], int nvalid, float(&acc)[MG][1][4]) {
+            uint4 b[1];
+            conv_b<1>(smem + PB::WSA, 0, lane, b);
+            uint32_t a[MG][4];
+            int pix[MG];
+#pragma unroll
+            for (int j = 0; j < MG; ++j) {
+              const int p = min(m0[j] + g, NPOS - 1), q = min(m0[j] + g + 8, NPOS - 1);
+              a[j][0] = xin[2 * ((p / rw(1) + 2) * PB::XS + p % rw(1) + 2) + t % 2];
+              a[j][1] = xin[2 * ((q / rw(1) + 2) * PB::XS + q % rw(1) + 2) + t % 2];
+              const int o = min(m0[j] + lane % 16, NPOS - 1);
+              pix[j] = o / rw(1) * PB::S0 + o % rw(1);
+            }
+            dffx::mma_bf16_split_b(a, b, nvalid, true, acc);
+            conv3x3_hilo<C, PB::S0>(midh_at, midl_at, pix, nvalid, smem + PB::W2A, lane, acc);
+          },
+          [&](int p, int co, float v0, float v1) {
+            const bool in = inside(1, rw(1), p);
+            v0 = in ? fmaxf(v0 + b2[co], 0.f) : 0.f;
+            v1 = in ? fmaxf(v1 + b2[co + 1], 0.f) : 0.f;
+            store_hilo<C>(outh, outl, p / rw(1) * PB::S1 + p % rw(1), co, v0, v1);
+          });
+    }
+    __syncthreads();  // out0 is complete, and no warp reads the input words again
+
+    // block 1's conv1 from out0 -> BN1 -> ReLU into mid (region 2, rows S2)
+    {
+      constexpr int MG = mg(2), NPOS = npos(2);
+      const float* s1 = smem + PB::S1B;
+      const float* b1 = smem + PB::B1B;
+      region_mma_bf16<NW, MG, 1, NPOS>(
+          warp, lane,
+          [&](const int(&m0)[MG], int nvalid, float(&acc)[MG][1][4]) {
+            int pix[MG];
+#pragma unroll
+            for (int j = 0; j < MG; ++j) {
+              const int o = min(m0[j] + lane % 16, NPOS - 1);
+              pix[j] = o / rw(2) * PB::S1 + o % rw(2);
+            }
+            conv3x3_hilo<C, PB::S1>(outh_at, outl_at, pix, nvalid, smem + PB::W1B, lane, acc);
+          },
+          [&](int p, int co, float v0, float v1) {
+            const bool in = inside(2, rw(2), p);
+            v0 = in ? fmaxf(fmaf(v0, s1[co], b1[co]), 0.f) : 0.f;
+            v1 = in ? fmaxf(fmaf(v1, s1[co + 1], b1[co + 1]), 0.f) : 0.f;
+            store_hilo<C>(midh, midl, p / rw(2) * PB::S2 + p % rw(2), co, v0, v1);
+          });
+    }
+    __syncthreads();
+
+    // block 1's 8 -> 8 shortcut on out0's centre (one k8 step, hi.ws_hi +
+    // hi.ws_lo + lo.ws_hi) and conv2 (BN2's scale in its weights) from mid,
+    // + BN2's shift, ReLU, for the tile's own pixels
+    {
+      constexpr int MG = mg(3), NPOS = TH * TW;
+      const float* b2 = smem + PB::B2B;
+      const int64_t obase = ((int64_t)(bn / N) * C * N + bn % N) * hw;
+      region_mma_bf16<NW, MG, 1, NPOS>(
+          warp, lane,
+          [&](const int(&m0)[MG], int nvalid, float(&acc)[MG][1][4]) {
+            uint4 b[1];
+            conv_b<1>(smem + PB::WSB, 0, lane, b);
+            uint32_t ah[MG][4], al[MG][4];
+            int pix[MG];
+#pragma unroll
+            for (int j = 0; j < MG; ++j) {
+              const int o = m0[j] + lane % 16;
+              const uint32_t at = 16u * ((o / TW + 2) * PB::S1 + o % TW + 2);
+              if (j < nvalid) {
+                dffx::ldmatrix_x2(ah[j][0], ah[j][1], outh_at + at);
+                dffx::ldmatrix_x2(al[j][0], al[j][1], outl_at + at);
+              }
+              pix[j] = o / TW * PB::S2 + o % TW;
+            }
+            dffx::mma_bf16_split_b(ah, b, nvalid, true, acc);
+            dffx::mma_bf16_part<0>(al, b, nvalid, true, acc);
+            conv3x3_hilo<C, PB::S2>(midh_at, midl_at, pix, nvalid, smem + PB::W2B, lane, acc);
+          },
+          [&](int p, int co, float v0, float v1) {
+            const int gh = th0 + p / TW, gw = tw0 + p % TW;
+            if (gh < H && gw < W) {
+              const int64_t o = obase + co * cstride + (int64_t)gh * W + gw;
+              dffx::store(y, o, fmaxf(v0 + b2[co], 0.f));
+              dffx::store(y, o + cstride, fmaxf(v1 + b2[co + 1], 0.f));
+            }
+          });
+    }
+  }
+  cp_async_wait_all();
+}
+
+cudaError_t launch_pair_bf16(const void* x, const void* params, void* y, int B, int N, int H,
+                             int W, cudaStream_t stream) {
+  const auto kernel = rb_of_pair_bf16_kernel;
+  const int bytes = PB::END * static_cast<int>(sizeof(float));
+  const int tiles_w = (W + TW - 1) / TW, tiles_h = (H + TH - 1) / TH;
+  const int64_t ntiles = (int64_t)B * N * tiles_w * tiles_h;
+  int grid = 0;
+  const cudaError_t err = dffx::persistent_grid(kernel, NT, bytes, ntiles, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, NT, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(params),
+      static_cast<__nv_bfloat16*>(y), N, H, W, tiles_w, tiles_h, static_cast<int>(ntiles),
+      dffx::vec_ok_bf16(x, W, 4));
+  return cudaGetLastError();
+}
+
+// the pair, or one C -> C block: bf16_res_block.cuh with the projection
+// shortcut, <C, tile height, warps, blocks per SM, true>
+cudaError_t dispatch_bf16(int cin, int cout, int nblocks, const void* x, const void* params,
+                          void* y, int B, int N, int H, int W, cudaStream_t stream) {
+  using dffx::launch_bf16_res_block;
+  if (cin == 3 && cout == 8 && nblocks == 2) {
+    return launch_pair_bf16(x, params, y, B, N, H, W, stream);
+  }
+  if (cin == 16 && cout == 16 && nblocks == 1) {
+    return launch_bf16_res_block<16, 16, 8, 2, true>(x, params, y, B, N, H, W, stream);
+  }
+  if (cin == 32 && cout == 32 && nblocks == 1) {
+    return launch_bf16_res_block<32, 8, 8, 1, true>(x, params, y, B, N, H, W, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -325,10 +657,10 @@ extern "C" int dffx_rb_of_chain(const void* x, const void* params, void* y, int 
                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DFFX_DTYPE_F32) {
-    return dispatch<float>(Cin, Cout, nblocks, x, params, y, B, N, H, W, s);
+    return dispatch_fp32(Cin, Cout, nblocks, x, params, y, B, N, H, W, s);
   }
   if (dtype == DFFX_DTYPE_BF16) {
-    return dispatch<__nv_bfloat16>(Cin, Cout, nblocks, x, params, y, B, N, H, W, s);
+    return dispatch_bf16(Cin, Cout, nblocks, x, params, y, B, N, H, W, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -13,13 +13,11 @@
 // cp.async, and folds BN2's scale into its copy of w2.  Per tile: conv1 -> BN1
 // -> ReLU into shared memory; then the shortcut goes straight into conv2's
 // accumulators -- the projection as C / 8 k-steps, the identity as the exact
-// fp32 x (a widened bf16 is exact too) -- and the input buffer is free: the
-// next tile's input is in flight while conv2 runs.  Channel planes in shared
+// fp32 x -- and the input buffer is free: the next tile's input is in flight
+// while conv2 runs.  Channel planes in shared
 // memory are 8 (mod 32) floats apart, so every A-fragment load (8 pixels x 4
 // channels across the warp) hits 32 distinct banks.
 #pragma once
-
-#include <type_traits>
 
 #include "mma.cuh"
 
@@ -56,14 +54,13 @@ struct ResBlockPlan {
 // (b * N + n) * tiles_h * tiles_w + ty * tiles_w + tx.
 // vec: with XO a multiple of 4, the input tile by 16-byte copies (W % 4 == 0,
 // x 16-byte aligned).
-template <typename T, int C, int TH, int NW, int MINB, bool PROJ, int XO>
+template <int C, int TH, int NW, int MINB, bool PROJ, int XO>
 __global__ void __launch_bounds__(32 * NW, MINB)
-res_block_kernel(const T* __restrict__ x, const float* __restrict__ params, T* __restrict__ y,
-                 int N, int H, int W, int tiles_w, int tiles_h, int ntiles, bool vec) {
+res_block_kernel(const float* __restrict__ x, const float* __restrict__ params,
+                 float* __restrict__ y, int N, int H, int W, int tiles_w, int tiles_h,
+                 int ntiles, bool vec) {
   using P = ResBlockPlan<C, TH, NW, PROJ, XO>;
   constexpr int NB = P::NB;
-  // a widened bf16 is a TF32 already: conv1 and the projection have no lo.hi term
-  constexpr bool BF16_IN = !std::is_same<T, float>::value;
   extern __shared__ __align__(16) float smem[];
   float* in_s = smem + P::IN;
   float* mid = smem + P::MID;
@@ -118,8 +115,8 @@ res_block_kernel(const T* __restrict__ x, const float* __restrict__ params, T* _
           int pa[P::MG1], pb[P::MG1];
           region_offsets<P::RW, P::IW>(p0, t * P::IP + XO - 2, pa);
           region_offsets<P::RW, P::IW>(p1, t * P::IP + XO - 2, pb);
-          conv3x3_mma<C, P::MG1, NB, P::IP, P::IW, BF16_IN>(in_s, pa, pb, nvalid, smem + P::W1,
-                                                            lane, acc);
+          conv3x3_mma<C, P::MG1, NB, P::IP, P::IW>(in_s, pa, pb, nvalid, smem + P::W1, lane,
+                                                   acc);
         },
         [&](int p, int co, float v) {
           const bool inside = in_image(th0 - 1 + p / P::RW, tw0 - 1 + p % P::RW, H, W);
@@ -145,8 +142,8 @@ res_block_kernel(const T* __restrict__ x, const float* __restrict__ params, T* _
       const float2* ws = reinterpret_cast<const float2*>(smem + P::WS);
 #pragma unroll
       for (int kc = 0; kc < P::KC; ++kc) {
-        mma_kstep_at<P::MG2, NB, BF16_IN>(in_s, pa, pb, kc * 8 * P::IP, (kc * 8 + 4) * P::IP,
-                                          P::MG2, ws + kc * NB * 32, lane, acc);
+        mma_kstep_at<P::MG2, NB>(in_s, pa, pb, kc * 8 * P::IP, (kc * 8 + 4) * P::IP, P::MG2,
+                                 ws + kc * NB * 32, lane, acc);
       }
     } else {
       // the exact x: thread (g, t) holds channels 2t, 2t + 1 of pixels g, g + 8
@@ -196,11 +193,11 @@ res_block_kernel(const T* __restrict__ x, const float* __restrict__ params, T* _
   cp_async_wait_all();
 }
 
-template <typename T, int C, int TH, int NW, int MINB, bool PROJ, int XO>
+template <int C, int TH, int NW, int MINB, bool PROJ, int XO>
 cudaError_t launch_res_block(const void* x, const void* params, void* y, int B, int N, int H,
                              int W, cudaStream_t stream) {
   using P = ResBlockPlan<C, TH, NW, PROJ, XO>;
-  const auto kernel = res_block_kernel<T, C, TH, NW, MINB, PROJ, XO>;
+  const auto kernel = res_block_kernel<C, TH, NW, MINB, PROJ, XO>;
   const int bytes = P::END * static_cast<int>(sizeof(float));
   const int tiles_w = (W + RES_TW - 1) / RES_TW, tiles_h = (H + TH - 1) / TH;
   const int64_t ntiles = (int64_t)B * N * tiles_w * tiles_h;
@@ -208,8 +205,8 @@ cudaError_t launch_res_block(const void* x, const void* params, void* y, int B, 
   const cudaError_t err = persistent_grid(kernel, P::NT, bytes, ntiles, &grid);
   if (err != cudaSuccess) return err;
   kernel<<<grid, P::NT, bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(params), static_cast<T*>(y), N, H, W,
-      tiles_w, tiles_h, static_cast<int>(ntiles), vec_ok(x, W));
+      static_cast<const float*>(x), static_cast<const float*>(params), static_cast<float*>(y), N,
+      H, W, tiles_w, tiles_h, static_cast<int>(ntiles), vec_ok(x, W));
   return cudaGetLastError();
 }
 

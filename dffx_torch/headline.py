@@ -396,8 +396,8 @@ def _gate_args(name: str, b: int, c: int, n: int, h: int, w: int, dev, gen) -> t
         return x, wt(c, c, 1, 3, 3), bn(c), wt(c, c, 1, 3, 3), bn(c)
     if name == "srd_attention_residual":
         return x, wt(c, c, 3, 1, 1), wt(c, c, 1, 1, 1)
-    if name == "rb_of_chain":
-        chans = ((3, 8), (8, 8))
+    if name == "rb_of_chain":  # FlowNetwork's level of that input width
+        chans = ((3, 8), (8, 8)) if c == 3 else ((c, c),)
         return x, [(wt(co, ci, 1, 3, 3), bn(co), wt(co, co, 1, 3, 3), bn(co),
                     wt(co, ci, 1, 1, 1)) for ci, co in chans]
     if name == "motion_head_conv_chain":
@@ -406,10 +406,12 @@ def _gate_args(name: str, b: int, c: int, n: int, h: int, w: int, dev, gen) -> t
     raise ValueError(f"no kernel {name!r}")
 
 
-#: (kernel, B, C, N, H, W): each kernel at its end-to-end path's shape, and the
-#: three the serving path runs at the b128 point's (1,280 slices of 384^2: an
-#: 8-channel activation of 1.51e9 elements, 368,640 tiles of rb2d's; the
-#: attention's grid srd_attention_plan sizes from B)
+#: (kernel, B, C, N, H, W): each kernel at its end-to-end path's shape
+#: (rb_of_chain at its three levels: fe1's pair at full resolution, the 16- and
+#: 32-channel blocks at half and quarter), and the three the serving path runs
+#: at the b128 point's (1,280 slices of 384^2: an 8-channel activation of
+#: 1.51e9 elements, 368,640 tiles of rb2d's; the attention's grid
+#: srd_attention_plan sizes from B)
 GATE_CASES = (("fm_conv_bn_relu", 1, 3, N, EH, EW),
               ("fm_conv_bn_relu", 128, 3, N, H, W),
               ("rb2d_residual", 1, 8, N, EH, EW),
@@ -417,6 +419,8 @@ GATE_CASES = (("fm_conv_bn_relu", 1, 3, N, EH, EW),
               ("srd_attention_residual", 1, 8, N, EH, EW),
               ("srd_attention_residual", 128, 8, N, H, W),
               ("rb_of_chain", 1, 3, N, EH, EW),
+              ("rb_of_chain", 1, 16, N, EH // 2, EW // 2),
+              ("rb_of_chain", 1, 32, N, EH // 4, EW // 4),
               ("motion_head_conv_chain", 1, 18, N, EH, EW))
 
 

@@ -66,6 +66,8 @@ __all__ = [
     "srd_attention_plan",
     "srd_params_size",
     "rb2d_bf16_words",
+    "rb_of_bf16_words",
+    "MOTION_HEAD_BF16_WORDS",
     "SrdPlan",
     "ParamCache",
     "tensor_stamp",
@@ -348,6 +350,11 @@ def _bf16_fragments(wk: torch.Tensor) -> torch.Tensor:
                       _bf16_words(lo[..., 0], lo[..., 1])], dim=-1).reshape(-1)
 
 
+def _frag_words(cout: int, k: int) -> int:
+    """Words of ``_bf16_fragments`` of a ``(cout, k)`` matrix."""
+    return -(-k // 16) * (cout // 8) * 128
+
+
 def _same_device(x: torch.Tensor, *tensors) -> None:
     for t in _tensors(tensors):
         if t.device != x.device:
@@ -394,7 +401,7 @@ def _tap_major(w: torch.Tensor) -> torch.Tensor:
 def rb2d_bf16_words(c: int) -> int:
     """Words of ``rb2d_params``' bf16 buffer at C channels: two convs of
     ceil(9C / 16) k-steps and C / 8 n-tiles of fragments, s1, b1, b2."""
-    return 2 * -(-9 * c // 16) * (c // 8) * 128 + 3 * c
+    return 2 * _frag_words(c, 9 * c) + 3 * c
 
 
 def rb2d_params(x: torch.Tensor, w1, aff1: Affine, w2, aff2: Affine) -> torch.Tensor:
@@ -420,12 +427,46 @@ def _rb_of_chain_plan(blocks: Sequence[OFBlock]):
     return tensors, layouts
 
 
+def _narrow_k(w: torch.Tensor) -> torch.Tensor:
+    """A weight ``(Cout, 3, 1, kh, kw)`` of the pair's 3-channel input as
+    ``(Cout, 4 kh kw)`` in ``csrc/rb_of.cu``'s bf16 K order, k = 4 tap + cin:
+    a pixel's two words are channels (0, 1) and (2, a zero)."""
+    co, ci = w.shape[:2]
+    return F.pad(w.float().reshape(co, ci, -1).permute(0, 2, 1), (0, 4 - ci)).reshape(co, -1)
+
+
+def rb_of_bf16_words(chans: Sequence[Tuple[int, int]]) -> int:
+    """Words of ``rb_of_chain_params``' bf16 buffer for the chain's
+    ``(cin, cout)`` blocks: per block w1's fragments, s1, b1, w2's, b2 and
+    ws's (``_frag_words``; a 3-channel input as four channels a tap)."""
+    words = 0
+    for cin, cout in chans:
+        k = 4 if cin % 8 else cin
+        words += (_frag_words(cout, 9 * k) + 2 * cout + _frag_words(cout, 9 * cout) + cout
+                  + _frag_words(cout, k))
+    return words
+
+
 def rb_of_chain_params(x: torch.Tensor, blocks: Sequence[OFBlock]) -> torch.Tensor:
-    """The fp32 buffer ``csrc/rb_of.cu`` reads, on x's device: per block w1,
-    s1, b1, w2, s2, b2, ws, every conv and shortcut in ``mma_conv_layout``;
-    the 3 -> 8 block of the pair has its w1 in ``pair_conv0_layout`` and its
-    shortcut as it is, ``[cout][cin]``."""
-    return _packed(x, *_rb_of_chain_plan(blocks))
+    """The fp32 buffer ``csrc/rb_of.cu`` reads for x's dtype, on x's device:
+    fp32, per block w1, s1, b1, w2, s2, b2, ws, every conv and shortcut in
+    ``mma_conv_layout``, and the 3 -> 8 block of the pair with its w1 in
+    ``pair_conv0_layout`` and its shortcut as it is, ``[cout][cin]``; bf16,
+    per block w1, s1, b1, w2 with BN2's scale folded in, b2, ws, each conv as
+    ``_bf16_fragments`` of ``_tap_major`` and each shortcut of ``[cout][cin]``
+    (the pair's 3-channel input in ``_narrow_k`` order)."""
+    if x.dtype != torch.bfloat16:
+        return _packed(x, *_rb_of_chain_plan(blocks))
+    _same_device(x, blocks)
+    parts = []
+    for w1, aff1, w2, aff2, ws in blocks:
+        narrow = w1.shape[1] % 8 != 0
+        w2s = w2.float() * aff2[0].float().view(-1, 1, 1, 1, 1)
+        parts += [_bf16_fragments(_narrow_k(w1) if narrow else _tap_major(w1)),
+                  aff1[0].float(), aff1[1].float(), _bf16_fragments(_tap_major(w2s)),
+                  aff2[1].float(),
+                  _bf16_fragments(_narrow_k(ws) if narrow else ws.float().flatten(1))]
+    return torch.cat(parts)
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -730,7 +771,8 @@ def rb_of_chain(x: torch.Tensor, blocks: Sequence[OFBlock], *,
         raise ValueError(f"kernel built for chains {_RB_OF_CHAINS}, got {tuple(chans)}")
     lib, stream = _cuda_args(x, name="rb_of_chain", reads=blocks)
     b, _, n, h, wd = x.shape
-    params = _use_params(params, x, *_rb_of_chain_plan(blocks))
+    params = _launch_params(params, x, rb_of_chain_params, (blocks,),
+                            _rb_of_chain_plan(blocks), rb_of_bf16_words(chans))
     y = torch.empty((b, cin, n, h, wd), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.dffx_rb_of_chain(
@@ -763,13 +805,33 @@ def _motion_head_plan(w0, aff0: Affine, w1, aff1: Affine, w2, aff2: Affine, w3, 
              mma_conv_layout, None, None, mma_conv_layout, _pad_to_4))
 
 
+#: words of ``motion_head_params``' bf16 buffer at (Cin, C) = (18, 16): w0
+#: (K = 9 x 16 + 24 for channels 16, 17), w1, w2, w3 (8 output channels),
+#: three affines, bias3
+MOTION_HEAD_BF16_WORDS = (_frag_words(16, 168) + 2 * _frag_words(16, 144) + _frag_words(8, 144)
+                          + 6 * 16 + 4)
+
+
 def motion_head_params(x, w0, aff0: Affine, w1, aff1: Affine, w2, aff2: Affine, w3, bias3
                        ) -> torch.Tensor:
-    """The fp32 buffer ``csrc/motion_head.cu`` reads, on x's device: w0, s0, b0,
-    w1, s1, b1, w2, s2, b2, w3, bias3: w0 in ``head_conv0_layout``, the other
-    convs in ``mma_conv_layout`` (w3's 3 output channels padded to 8), bias3
-    padded to 4."""
-    return _packed(x, *_motion_head_plan(w0, aff0, w1, aff1, w2, aff2, w3, bias3))
+    """The fp32 buffer ``csrc/motion_head.cu`` reads for x's dtype, on x's
+    device: w0, s0, b0, w1, s1, b1, w2, s2, b2, w3, bias3.  fp32: w0 in
+    ``head_conv0_layout``, the other convs in ``mma_conv_layout`` (w3's 3
+    output channels padded to 8), bias3 padded to 4.  bf16: every conv as
+    ``_bf16_fragments``, w0 of channels 0..15 in ``_tap_major`` order and
+    then channels 16 and 17 as k = 144 + 2 tap + cin - 16, the others in
+    ``_tap_major`` order (w3 padded to 8 output channels), bias3 padded to 4."""
+    if x.dtype != torch.bfloat16:
+        return _packed(x, *_motion_head_plan(w0, aff0, w1, aff1, w2, aff2, w3, bias3))
+    _same_device(x, w0, aff0, w1, aff1, w2, aff2, w3, bias3)
+    c = w0.shape[0]
+    tail = w0[:, 16:].float().reshape(c, -1, 9).permute(0, 2, 1).reshape(c, -1)
+    w3p = F.pad(w3.float(), (0, 0, 0, 0, 0, 0, 0, 0, 0, -w3.shape[0] % 8))
+    return torch.cat([_bf16_fragments(torch.cat([_tap_major(w0[:, :16]), tail], dim=1)),
+                      *(v.float() for v in aff0), _bf16_fragments(_tap_major(w1)),
+                      *(v.float() for v in aff1), _bf16_fragments(_tap_major(w2)),
+                      *(v.float() for v in aff2), _bf16_fragments(_tap_major(w3p)),
+                      _pad_to_4(bias3.float())])
 
 
 def motion_head_conv_chain(x: torch.Tensor, w0: torch.Tensor, aff0: Affine,
@@ -804,8 +866,9 @@ def motion_head_conv_chain(x: torch.Tensor, w0: torch.Tensor, aff0: Affine,
     lib, stream = _cuda_args(x, name="motion_head_conv_chain",
                              reads=(w0, aff0, w1, aff1, w2, aff2, w3, bias3))
     b, _, n, h, wd = x.shape
-    params = _use_params(params, x,
-                         *_motion_head_plan(w0, aff0, w1, aff1, w2, aff2, w3, bias3))
+    args = (w0, aff0, w1, aff1, w2, aff2, w3, bias3)
+    params = _launch_params(params, x, motion_head_params, args, _motion_head_plan(*args),
+                            MOTION_HEAD_BF16_WORDS)
     y = torch.empty((b, 3, n, h, wd), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.dffx_motion_head_conv_chain(

@@ -1,4 +1,5 @@
-"""The bf16 designs of fm_conv_bn_relu and rb2d_residual, on the CPU.
+"""The bf16 designs of fm_conv_bn_relu, rb2d_residual, rb_of_chain and
+motion_head_conv_chain, on the CPU.
 
 Each kernel's bf16 plan is emulated from the buffer its wrapper packs: the
 weights as bf16 hi/lo pairs of B fragments (``kernels._bf16_fragments``), the
@@ -76,7 +77,7 @@ def _read_rb2d_bf16(packed, c):
     w2_lo), b2), the convs as (cout, cin, 1, 3, 3) (k = tap * C + cin)."""
     fw = tk.rb2d_bf16_words(c) // 2 - 3 * c // 2
     w1, s1, b1, w2, b2 = torch.split(packed, [fw, c, c, fw, c])
-    conv = lambda v: v[:, :9 * c].reshape(c, 9, c).permute(0, 2, 1).reshape(c, c, 1, 3, 3)
+    conv = lambda v: _conv_w(v, c)
     return (tuple(map(conv, _read_bf16_fragments(w1, c))), s1, b1,
             tuple(map(conv, _read_bf16_fragments(w2, c))), b2)
 
@@ -89,11 +90,131 @@ def _fm_weights(w, scale, shift):
     return hi, lo
 
 
-@pytest.mark.parametrize("kernel", ["fm_conv", "rb2d_c8", "rb2d_c16", "rb2d_c32"])
+#: FlowNetwork's three rb_of_chain levels, as ``kernels._RB_OF_CHAINS``
+RB_OF_CHAINS = {"fe1": ((3, 8), (8, 8)), "fe2": ((16, 16),), "fe3": ((32, 32),)}
+
+
+def _chain_inputs(g, b, n, h, w, chans):
+    x = torch.from_numpy(g.uniform(-1, 1, (b, chans[0][0], n, h, w)).astype(np.float32))
+    return x, [(_wt(g, co, ci, 1, 3, 3), _bn(g, co), _wt(g, co, co, 1, 3, 3), _bn(g, co),
+                _wt(g, co, ci, 1, 1, 1)) for ci, co in chans]
+
+
+def _head_inputs(g, b, n, h, w):
+    x = torch.from_numpy(g.uniform(-1, 1, (b, 18, n, h, w)).astype(np.float32))
+    return (x, _wt(g, 16, 18, 1, 3, 3), _bn(g, 16), _wt(g, 16, 16, 1, 3, 3), _bn(g, 16),
+            _wt(g, 16, 16, 1, 3, 3), _bn(g, 16), _wt(g, 3, 16, 1, 3, 3),
+            torch.from_numpy(g.standard_normal(3).astype(np.float32)))
+
+
+def _split_words(packed, sizes):
+    assert sum(sizes) == packed.numel()
+    return torch.split(packed, sizes)
+
+
+def _read_rb_of_bf16(packed, chans):
+    """``rb_of_chain_params``' bf16 buffer back to, per block, (w1, s1, b1, w2,
+    b2, ws), each conv and shortcut as (hi, lo) ``(cout, K')`` in the
+    kernel's K order."""
+    sizes = []
+    for cin, cout in chans:
+        k = 4 if cin % 8 else cin
+        sizes += [tk._frag_words(cout, 9 * k), cout, cout, tk._frag_words(cout, 9 * cout), cout,
+                  tk._frag_words(cout, k)]
+    parts = _split_words(packed, sizes)
+    blocks = []
+    for i, (_, cout) in enumerate(chans):
+        w1, s1, b1, w2, b2, ws = parts[6 * i:6 * i + 6]
+        blocks.append((_read_bf16_fragments(w1, cout), s1, b1, _read_bf16_fragments(w2, cout),
+                       b2, _read_bf16_fragments(ws, cout)))
+    return blocks
+
+
+def _read_head_bf16(packed):
+    """``motion_head_params``' bf16 buffer back to (w0, s0, b0, w1, s1, b1, w2,
+    s2, b2, w3, bias3), each conv as (hi, lo) ``(cout, K')``, w3 with its
+    padded output channels."""
+    assert packed.numel() == tk.MOTION_HEAD_BF16_WORDS
+    w0, s0, b0, w1, s1, b1, w2, s2, b2, w3, bias = _split_words(
+        packed, [11 * 256, 16, 16, 9 * 256, 16, 16, 9 * 256, 16, 16, 9 * 128, 4])
+    return (_read_bf16_fragments(w0, 16), s0, b0, _read_bf16_fragments(w1, 16), s1, b1,
+            _read_bf16_fragments(w2, 16), s2, b2, _read_bf16_fragments(w3, 8), bias)
+
+
+def _tap_major(w):
+    """(Cout, Cin, 1, 3, 3) as (Cout, 9 Cin), k = tap * Cin + cin."""
+    co, ci = w.shape[:2]
+    return w.reshape(co, ci, 9).permute(0, 2, 1).reshape(co, -1)
+
+
+def _narrow(w):
+    """The pair's 3-channel weight (Cout, 3, 1, kh, kw) as (Cout, 4 kh kw),
+    k = 4 tap + cin, cin 3 a zero: written here value by value."""
+    co, ci = w.shape[:2]
+    taps = w.shape[3] * w.shape[4]
+    out = torch.zeros(co, 4 * taps)
+    for tap in range(taps):
+        for c in range(ci):
+            out[:, 4 * tap + c] = w.reshape(co, ci, taps)[:, c, tap]
+    return out
+
+
+def _rb_of_want(blocks):
+    """What each block's (w1, s1, b1, w2, b2, ws) should read back as."""
+    want = []
+    for w1, aff1, w2, aff2, ws in blocks:
+        narrow = w1.shape[1] % 8 != 0
+        w2s = w2 * aff2[0].view(-1, 1, 1, 1, 1)
+        want.append(((_narrow(w1) if narrow else _tap_major(w1)), aff1[0], aff1[1],
+                     _tap_major(w2s), aff2[1], (_narrow(ws) if narrow else ws.flatten(1))))
+    return want
+
+
+def _hi_lo_hold(hi, lo, w):
+    """hi = bf16(w) exactly and hi + lo = w within 2^-16 of |w|, over w's K;
+    the padding beyond it zero."""
+    k = w.shape[1]
+    np.testing.assert_array_equal(hi[:, :k].numpy(), _bf16(w).numpy())
+    assert ((hi[:, :k] + lo[:, :k] - w).abs() <= 2.0 ** -16 * w.abs()).all()
+    assert not hi[:, k:].any() and not lo[:, k:].any()
+
+
+def _reads_back(got, want):
+    """Each read-back entry against what it should be: a conv's (hi, lo) by
+    ``_hi_lo_hold``, an affine bit for bit."""
+    assert len(got) == len(want)
+    for got_v, want_v in zip(got, want):
+        if isinstance(got_v, (tuple, list)):
+            _hi_lo_hold(*got_v, want_v)
+        else:
+            np.testing.assert_array_equal(got_v.numpy(), want_v.numpy())
+
+
+@pytest.mark.parametrize("kernel", ["fm_conv", "rb2d_c8", "rb2d_c16", "rb2d_c32", "motion_head",
+                                    "rb_of_fe1", "rb_of_fe2", "rb_of_fe3"])
 def test_bf16_buffers_read_back_as_hi_lo_pairs(kernel):
     """hi = w.to(bf16) exactly, and hi + lo = w within 2^-16 of |w|, in the
-    kernel's K order (rb2d's w2 with BN2's scale folded in)."""
+    kernel's K order (rb2d's and rb_of's w2 with BN2's scale folded in); the
+    affines as they are."""
     g = np.random.default_rng(1)
+    xb = torch.zeros(1, 1, 1, 1, 1, dtype=torch.bfloat16)
+    if kernel == "motion_head":
+        _, w0, aff0, w1, aff1, w2, aff2, w3, bias3 = _head_inputs(g, 1, 1, 1, 1)
+        got = _read_head_bf16(tk.motion_head_params(xb, w0, aff0, w1, aff1, w2, aff2, w3, bias3))
+        tail = torch.stack([w0[:, 16 + e].reshape(16, 9) for e in (0, 1)], -1).reshape(16, 18)
+        want = [torch.cat([_tap_major(w0[:, :16]), tail], 1), *aff0, _tap_major(w1), *aff1,
+                _tap_major(w2), *aff2, _tap_major(F.pad(w3, (0,) * 8 + (0, 5))),
+                F.pad(bias3, (0, 1))]
+        _reads_back(got, want)
+        return
+    if kernel.startswith("rb_of"):
+        chans = RB_OF_CHAINS[kernel.split("_")[-1]]
+        _, blocks = _chain_inputs(g, 1, 1, 1, 1, chans)
+        packed = tk.rb_of_chain_params(xb, blocks)
+        assert packed.numel() == tk.rb_of_bf16_words(chans)
+        for got, want in zip(_read_rb_of_bf16(packed, chans), _rb_of_want(blocks)):
+            _reads_back(got, want)
+        return
     if kernel == "fm_conv":
         _, w, scale, shift = _fm_inputs(g, 1, 1, 1, 1)
         hi, lo = _fm_weights(w, scale, shift)
@@ -291,4 +412,184 @@ def test_rb2d_residual_bf16_matches_pallas(interpret_pallas):
     assert got.dtype == torch.bfloat16
     err = (got.float() - ref).abs().max().item()
     assert err <= PALLAS_BF16_RTOL * ref.abs().max().item(), err
+    assert tk.launches == dict.fromkeys(tk.launches, 0)
+
+
+def _split(v):
+    """An fp32 intermediate as the kernels write it once: bf16 hi and lo planes."""
+    hi = _bf16(v)
+    return hi, _bf16(v - hi)
+
+
+def _conv_w(m, cin):
+    """A read-back (cout, K') matrix of a (1,3,3) conv, k = tap * cin + c, as a
+    conv3d weight."""
+    co = m.shape[0]
+    return m[:, :9 * cin].reshape(co, 9, cin).permute(0, 2, 1).reshape(co, cin, 1, 3, 3)
+
+
+def _conv_hilo(v, w):
+    """The kernels' conv of an fp32 intermediate v against split weights w =
+    (hi, lo) as (cout, K'): hi.w_hi + hi.w_lo + lo.w_hi, pad 1."""
+    vh, vl = _split(v)
+    wh, wl = (_conv_w(m, v.shape[1]) for m in w)
+    conv = lambda a, b: F.conv3d(a, b, padding=(0, 1, 1))
+    return conv(vh, wh) + conv(vh, wl) + conv(vl, wh)
+
+
+def _taps(xp, h, wd, tap):
+    """The (c, h, w) window of a 1-padded (c, h + 2, w + 2) tile at tap 3 dy + dx."""
+    dy, dx = divmod(tap, 3)
+    return xp[:, dy:dy + h, dx:dx + wd]
+
+
+def _gemm(a, w, cols):
+    """a (pixels, cols) against split weights (hi, lo) over their first cols
+    k values: x.w_hi + x.w_lo, x exact."""
+    hi, lo = w
+    return a @ hi[:, :cols].T + a @ lo[:, :cols].T
+
+
+def _pixels(y, h, wd):
+    """(pixels, c) back to (1, c, 1, h, w)."""
+    return y.T.reshape(1, -1, 1, h, wd)
+
+
+def _pair_bf16_plan(x, blocks):
+    """rb_of_chain's bf16 pair (3 -> 8 -> 8) on one slice, from the read-back
+    buffer, before the output's rounding.  Block 0's conv1 gathers A as the
+    kernel does: k value 2q + e is element e of word q % 2 of the pixel at tap
+    min(q / 2, 8), a pixel's words (c0, c1) and (c2, 0), over the k16, k16 and
+    k8 steps (k < 40); its shortcut reads pairs t = 0..3 as word t % 2 of the
+    centre (k < 8).  Every intermediate is 0 outside the image, split into hi
+    and lo for the next conv."""
+    (w1a, s1a, b1a, w2a, b2a, wsa), (w1b, s1b, b1b, w2b, b2b, wsb) = blocks
+    _, _, _, h, wd = x.shape
+    xp = F.pad(x[0, :, 0], (1, 1, 1, 1))
+    words = torch.cat([xp, torch.zeros_like(xp[:1])])  # channel 3: a word's zero half
+    a = torch.stack([_taps(words, h, wd, min(q // 2, 8))[2 * (q % 2) + e].reshape(-1)
+                     for q in range(20) for e in (0, 1)], 1)
+    mid = _pixels(torch.relu(_gemm(a, w1a, 40) * s1a + b1a), h, wd)
+    centre = words[[0, 1, 2, 3, 0, 1, 2, 3], 1:1 + h, 1:1 + wd].reshape(8, -1).T
+    out0 = torch.relu(_pixels(_gemm(centre, wsa, 8), h, wd) + _conv_hilo(mid, w2a)
+                      + tk._view(b2a))
+    mid = torch.relu(_conv_hilo(out0, w1b) * tk._view(s1b) + tk._view(b1b))
+    oh, ol = _split(out0)
+    hi, lo = (m[:, :8].reshape(8, 8, 1, 1, 1) for m in wsb)
+    short = F.conv3d(oh, hi) + F.conv3d(oh, lo) + F.conv3d(ol, hi)
+    return torch.relu(short + _conv_hilo(mid, w2b) + tk._view(b2b))
+
+
+def _block_bf16_plan(x, block):
+    """rb_of_chain's bf16 C -> C block (fe2, fe3) on one slice: conv1 = x.w1_hi
+    + x.w1_lo, BN1, ReLU, split; the projection x.ws_hi + x.ws_lo and conv2
+    (BN2's scale in w2) of hi and lo, + BN2's shift, ReLU."""
+    w1, s1, b1, w2, b2, ws = block
+    c = x.shape[1]
+    hi, lo = (_conv_w(m, c) for m in w1)
+    conv1 = F.conv3d(x, hi, padding=(0, 1, 1)) + F.conv3d(x, lo, padding=(0, 1, 1))
+    mid = torch.relu(conv1 * tk._view(s1) + tk._view(b1))
+    short = sum(F.conv3d(x, m[:, :c].reshape(c, c, 1, 1, 1)) for m in ws)
+    return torch.relu(short + _conv_hilo(mid, w2) + tk._view(b2))
+
+
+def _head_bf16_plan(x, read):
+    """motion_head_conv_chain's bf16 plan on one slice, before the output's
+    rounding: conv0 gathers A as the kernel does, k = 16 tap + c for channels
+    0..15 (nine k16 steps), then the tail's pair q (a k16 and a k8 step, q <
+    12) as channels 16 and 17 at tap min(q, 8), x.w_hi + x.w_lo; BN0 and
+    ReLU; conv1..conv3 of split intermediates, hi.w_hi + hi.w_lo + lo.w_hi;
+    bias3 on channels 0..2."""
+    w0, s0, b0, w1, s1, b1, w2, s2, b2, w3, bias = read
+    _, _, _, h, wd = x.shape
+    xp = F.pad(x[0, :, 0], (1, 1, 1, 1))
+    main = [_taps(xp, h, wd, tap)[:16].reshape(16, -1) for tap in range(9)]
+    tail = [_taps(xp, h, wd, min(q, 8))[16:].reshape(2, -1) for q in range(12)]
+    a = torch.cat(main + tail).T
+    y = _pixels(torch.relu(_gemm(a, w0, 168) * s0 + b0), h, wd)
+    for w, sc, sh in ((w1, s1, b1), (w2, s2, b2)):
+        y = torch.relu(_conv_hilo(y, w) * tk._view(sc) + tk._view(sh))
+    return _conv_hilo(y, w3)[:, :3] + tk._view(bias[:3])
+
+
+def _bf16_plan_errors(plan, ref):
+    """The plan's largest error against the fp32 twin, with its output rounded
+    to bf16 and before that rounding."""
+    return (_bf16(plan) - ref).abs().max().item(), (plan - ref).abs().max().item()
+
+
+@pytest.mark.parametrize("level", sorted(RB_OF_CHAINS))
+@pytest.mark.parametrize("b,n,h,wd", PLAN_SHAPES, ids=PLAN_IDS)
+def test_rb_of_chain_bf16_plan_holds_the_bf16_bound(b, n, h, wd, level):
+    """rb_of_chain's bf16 plans from the packed buffer, with non-zero BN shifts
+    and chip_smoke.py's weight scale (0.1): within 1e-4 of the fp32 twin on the
+    bf16-rounded input before the output is rounded, and within the bf16 bound
+    after.  One slice of each shape (the plans are per slice)."""
+    chans = RB_OF_CHAINS[level]
+    g = np.random.default_rng(17)
+    x, blocks = _chain_inputs(g, 1, 1, h, wd, chans)
+    x = _bf16(x)
+    read = _read_rb_of_bf16(tk.rb_of_chain_params(x.bfloat16(), blocks), chans)
+    plan = _pair_bf16_plan(x, read) if level == "fe1" else _block_bf16_plan(x, read[0])
+    ref = tk.rb_of_chain_ref(x, blocks)
+    rounded, inside = _bf16_plan_errors(plan, ref)
+    assert rounded <= gate_bound(torch.bfloat16, ref.abs().max().item()), rounded
+    assert inside <= FP32_INSIDE, inside
+
+
+@pytest.mark.parametrize("b,n,h,wd", PLAN_SHAPES, ids=PLAN_IDS)
+def test_motion_head_bf16_plan_holds_the_bf16_bound(b, n, h, wd):
+    """motion_head_conv_chain's bf16 plan from the packed buffer, as
+    test_rb_of_chain_bf16_plan_holds_the_bf16_bound holds rb_of_chain's."""
+    g = np.random.default_rng(19)
+    x, *args = _head_inputs(g, 1, 1, h, wd)
+    x = _bf16(x)
+    plan = _head_bf16_plan(x, _read_head_bf16(tk.motion_head_params(x.bfloat16(), *args)))
+    ref = tk.motion_head_conv_chain_ref(x, *args)
+    rounded, inside = _bf16_plan_errors(plan, ref)
+    assert rounded <= gate_bound(torch.bfloat16, ref.abs().max().item()), rounded
+    assert inside <= FP32_INSIDE, inside
+
+
+#: the FlowNetwork twins against dffx's Pallas kernels on the same bf16 input:
+#: both cast the weights to bf16 and round the output to bf16, but the twin
+#: also rounds every intermediate to bf16 (three in the pair and in the motion
+#: head, one in a C -> C block) where the Pallas kernel keeps fp32 scratch, so
+#: a chain sits a few output ulps apart (measured at these shapes: head 0.0156
+#: of 2.44, fe1 0.0273 of 1.38, fe2 0.0625 of 9.5, fe3 0.125 of 19.25); 2^-5
+#: of the largest value is four ulps of it
+PALLAS_CHAIN_BF16_RTOL = 2.0 ** -5
+
+
+def _jaff(a):
+    return tuple(jnp.asarray(v.numpy()) for v in a)
+
+
+def test_motion_head_conv_chain_bf16_matches_pallas(interpret_pallas):
+    g = np.random.default_rng(0)
+    x, w0, aff0, w1, aff1, w2, aff2, w3, bias3 = _head_inputs(g, 1, 2, 32, 128)
+    x = x.bfloat16()
+    ref = _ncdhw(jpk.motion_head_conv_chain(
+        _ndhwc(x), _dhwio(w0), _jaff(aff0), _dhwio(w1), _jaff(aff1), _dhwio(w2), _jaff(aff2),
+        _dhwio(w3), jnp.asarray(bias3.numpy())))
+    got = tk.motion_head_conv_chain(x, w0, aff0, w1, aff1, w2, aff2, w3, bias3)
+    assert got.dtype == torch.bfloat16
+    err = (got.float() - ref).abs().max().item()
+    assert err <= PALLAS_CHAIN_BF16_RTOL * ref.abs().max().item(), err
+    assert tk.launches == dict.fromkeys(tk.launches, 0)
+
+
+@pytest.mark.parametrize("level", sorted(RB_OF_CHAINS))
+def test_rb_of_chain_bf16_matches_pallas(interpret_pallas, level):
+    chans = RB_OF_CHAINS[level]
+    g = np.random.default_rng(0)
+    x, blocks = _chain_inputs(g, 1, 1, 32, 128, chans)
+    x = x.bfloat16()
+    ref = _ncdhw(jpk.rb_of_chain(_ndhwc(x), tuple(
+        (_dhwio(w1), _jaff(aff1), _dhwio(w2), _jaff(aff2), _dhwio(ws))
+        for w1, aff1, w2, aff2, ws in blocks)))
+    got = tk.rb_of_chain(x, blocks)
+    assert got.dtype == torch.bfloat16
+    err = (got.float() - ref).abs().max().item()
+    assert err <= PALLAS_CHAIN_BF16_RTOL * ref.abs().max().item(), err
     assert tk.launches == dict.fromkeys(tk.launches, 0)

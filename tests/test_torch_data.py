@@ -13,6 +13,7 @@ import torch
 
 import dffx.data as jdata
 from dffx.data import exr as jexr
+from dffx.data import native as jnative
 from dffx.utils import tensorboard as jtb
 from dffx_torch import data as tdata
 from dffx_torch.data import exr as texr
@@ -21,6 +22,13 @@ from dffx_torch.utils import sanitize as tsan
 from dffx_torch.utils import tensorboard as ttb
 
 import torch_fixtures as fx
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _whole_reference_library():
+    """``dffx``'s host library built and loadable before this module's first
+    ``dffx`` reader or ``dffx.data.native`` call (``fx.reference_host_library``)."""
+    fx.reference_host_library(jnative._SO, jnative._REQUIRED_VERSION)
 
 
 @pytest.fixture(scope="module")
@@ -144,8 +152,6 @@ def test_ddff_focus_dists_and_augmentation_draws_match(rng):
 
 
 def test_native_paths_match_dffx(rng):
-    from dffx.data import native as jnative
-
     stack = rng.integers(0, 256, (3, 47, 72, 3), dtype=np.uint8)
     np.testing.assert_array_equal(native.normalize_pad_stack(stack),
                                   jnative.normalize_pad_stack(stack))

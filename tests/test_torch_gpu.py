@@ -373,6 +373,62 @@ def test_wrappers_refuse_non_contiguous_and_unbuilt_widths(cuda, rng):
     assert tk.launches == dict.fromkeys(tk.launches, 0)
 
 
+#: the bf16 designs of FlowNetwork's kernels: the motion head and each
+#: rb_of_chain level (FLOW_LEVELS: the index into CHAINS); head and fe1 beyond
+#: GRID_SHAPES (which the persistent-grid tests cover in bf16), fe2 and fe3 at
+#: every shape
+FLOW_LEVELS = {"head": None, "fe1": 0, "fe2": 1, "fe3": 2}
+FLOW_BF16 = ([(k, s) for k in ("head", "fe1") for s in BF16_SHAPES]
+             + [(k, s) for k in ("fe2", "fe3") for s in GRID_SHAPES + BF16_SHAPES])
+FLOW_BF16_IDS = ([f"{k}_{i}" for k in ("head", "fe1") for i in BF16_IDS]
+                 + [f"{k}_{i}" for k in ("fe2", "fe3")
+                    for i in ["many_tiles", "odd", "strip"] + BF16_IDS])
+
+
+def _flow_kernel(rng, level, shape, dev):
+    """(wrapper, twin, packer, launch name, x, the weights' args) of a FlowNetwork level."""
+    if level == "head":
+        x, *args = _head_args(rng, *shape, dev)
+        return (tk.motion_head_conv_chain, tk.motion_head_conv_chain_ref, tk.motion_head_params,
+                "motion_head_conv_chain", x, args)
+    x, blocks = _chain_args(rng, *shape, CHAINS[FLOW_LEVELS[level]], dev)
+    return (tk.rb_of_chain, tk.rb_of_chain_ref, tk.rb_of_chain_params, "rb_of_chain", x,
+            [blocks])
+
+
+@pytest.mark.parametrize("level,shape", FLOW_BF16, ids=FLOW_BF16_IDS)
+def test_flow_kernels_bf16_match_twins(cuda, rng, level, shape):
+    """bf16 in, fp32 inside: each rounds only its output against the fp32
+    twin on the same rounded input; a kept buffer gives the same bits as one
+    packed on the call, and the fp32 packing's buffer is refused."""
+    fn, twin, pack, name, x, args = _flow_kernel(rng, level, shape, cuda)
+    x = x.bfloat16()
+    got = fn(x, *args)
+    torch.cuda.synchronize()
+    assert tk.launches[name] == 1 and got.dtype == torch.bfloat16
+    assert torch.equal(fn(x, *args, params=pack(x, *args)), got)
+    ref = twin(x.float(), *args)
+    assert (got.float() - ref).abs().max().item() <= _bf16_bound(ref)
+    with pytest.raises(ValueError, match="params"):
+        fn(x, *args, params=pack(x.float(), *args))
+
+
+@pytest.mark.parametrize("level", sorted(FLOW_LEVELS))
+def test_param_cache_keeps_each_dtype_its_own_buffer(cuda, rng, level):
+    """One ParamCache met by an fp32 and a bf16 input in turns packs each dtype
+    its own buffer, and every launch reads the buffer of its input's dtype:
+    the same bits as a buffer packed on the call."""
+    fn, _, pack, _, x, args = _flow_kernel(rng, level, (1, 2, 40, 72), cuda)
+    cache = tk.ParamCache(pack)
+    kept = {}
+    for xx in (x, x.bfloat16(), x, x.bfloat16()):
+        buf = cache(xx, *args)
+        assert buf.numel() == pack(xx, *args).numel()
+        kept.setdefault(xx.dtype, buf.numel())
+        assert torch.equal(fn(xx, *args, params=buf), fn(xx, *args))
+    assert kept[torch.float32] != kept[torch.bfloat16]
+
+
 def test_network_on_the_card_matches_cpu(cuda, rng):
     from dffx_torch.eval import load_params_auto
 

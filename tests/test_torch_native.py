@@ -36,6 +36,13 @@ import torch_fixtures as fx
 ROOT = Path(__file__).resolve().parent.parent
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _whole_reference_library():
+    """``dffx``'s host library built and loadable before this module's first
+    ``dffx.data.native`` call (``fx.reference_host_library``)."""
+    fx.reference_host_library(jnative._SO, jnative._REQUIRED_VERSION)
+
+
 @pytest.fixture(autouse=True)
 def _fresh_counts():
     native.reset_decodes()

@@ -4,7 +4,9 @@ with numpy, ``cv2``, ``h5py``, ``scipy.io`` and the EXR writer: the fixtures of
 the directory to write into and returns the path a reader is given.
 ``run_cli`` runs a command line's ``main`` in-process; ``recording_train`` and
 ``recording_forwards`` keep what a command line computes, which it does not
-return.  ``chip_smoke.py`` drives the command lines through the same helpers."""
+return.  ``chip_smoke.py`` drives the command lines through the same helpers.
+``reference_host_library`` makes the JAX package's host library whole before
+a test that compares with it loads it."""
 
 import contextlib
 import io
@@ -31,6 +33,89 @@ def one_thread():
         yield
     finally:
         torch.set_num_threads(threads)
+
+
+#: the seconds ``reference_host_library`` waits for a library that another
+#: process is still writing
+LIBRARY_DEADLINE_S = 60.0
+
+
+def _library_state(so: str, symbol: str):
+    """``(file identity, version)`` of the shared library at ``so``, the
+    version from ``symbol()`` in a fresh interpreter (so that this process
+    never maps a file that is still being written), or ``None`` if the file
+    is absent or does not load."""
+    import subprocess
+    import sys
+
+    try:
+        before = os.stat(so)
+    except FileNotFoundError:
+        return None
+    code = ("import ctypes, sys; lib = ctypes.CDLL(sys.argv[1]); "
+            f"lib.{symbol}.restype = ctypes.c_int; print(lib.{symbol}())")
+    proc = subprocess.run([sys.executable, "-S", "-c", code, so], capture_output=True,
+                          text=True, timeout=60)
+    try:
+        after = os.stat(so)
+    except FileNotFoundError:
+        return None
+    ident = (before.st_ino, before.st_size, before.st_mtime_ns)
+    if proc.returncode != 0 or ident != (after.st_ino, after.st_size, after.st_mtime_ns):
+        return None
+    return ident, int(proc.stdout)
+
+
+def reference_host_library(so: str, min_version: int, *, symbol: str = "dffxio_version",
+                           deadline_s: float = LIBRARY_DEADLINE_S) -> None:
+    """Make the JAX package's host library at ``so`` whole before a test of
+    this process loads it.
+
+    ``dffx.data.native`` takes the library as ready as soon as the file
+    exists, and its Makefile (beside ``so``) links into that path in place, so
+    with the suite in several processes one process's build can leave a
+    half-written file that another opens ("file too short").  Here, under a
+    lock file that this helper's callers share: a library that is absent or
+    older than ``min_version`` is built by the same Makefile into a temporary
+    name and moved into place with ``os.replace``; one that is present is
+    waited for, up to ``deadline_s``, until it loads in a fresh subprocess and
+    its ``symbol()`` answers at least ``min_version``.  Raises if it never
+    does.  Where the Makefile cannot build it, nothing is put in place and
+    ``dffx`` takes its numpy fallback, as it does without this helper."""
+    import fcntl
+    import hashlib
+    import subprocess
+    import tempfile
+
+    so = os.path.abspath(so)
+    tag = hashlib.sha1(so.encode()).hexdigest()[:16]
+    deadline = time.monotonic() + deadline_s
+    with open(os.path.join(tempfile.gettempdir(), f"host-library-{tag}.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        built = False
+        while True:
+            state = _library_state(so, symbol)
+            if state is not None and state[1] >= min_version:
+                return
+            if not built and (not os.path.exists(so) or state is not None):
+                tmp = f"{os.path.dirname(so)}/.{os.path.basename(so)}.{os.getpid()}.tmp"
+                try:
+                    made = subprocess.run(["make", "-B", "-C", os.path.dirname(so),
+                                           f"TARGET={os.path.basename(tmp)}"],
+                                          capture_output=True, timeout=300).returncode == 0
+                    if made:
+                        os.replace(tmp, so)
+                finally:
+                    if os.path.exists(tmp):
+                        os.remove(tmp)
+                if not made:  # no toolchain: the reference falls back to numpy, as it does
+                    return
+                built = True
+                continue
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"{so} does not load within {deadline_s} s: "
+                                   f"{'absent' if state is None else f'version {state[1]}'}")
+            time.sleep(0.2)
 
 
 def run_cli(main, argv) -> str:
