@@ -840,8 +840,10 @@ def device_seconds(torch, fn) -> tuple:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    # kernels, copies and sets only: a range the program's spans annotate
+    # (a user annotation on the device) covers its kernels again
     rows = [(e.key, e.self_device_time_total / 1e6) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     copies = sum(s for k, s in rows if k.startswith(("Memcpy", "Memset")))
     return sum(s for _, s in rows) - copies, copies
 

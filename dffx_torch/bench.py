@@ -24,10 +24,13 @@ buffer now, and for the attention its grid plan).
                 CUDA events;
 * ``mma``       what ``mma.sync`` m16n8k8 TF32 reaches on this card with nothing
                 around it (a kernel of independent MMAs, built here with nvcc);
-* ``stages``    the end-to-end forward at 1 x 10 x 608 x 1088 by stage (CUDA
-                events at module boundaries), then ``torch.profiler``'s device
-                time by kernel name and the device's busy share, for it and
-                for DFFNet alone at 10 x 384 x 384 (batch 1 fp32, batch 4 bf16);
+* ``stages``    the end-to-end forward at 1 x 10 x 608 x 1088 by stage (the
+                program's spans under ``profiling.collect()``: the device
+                time of ``e2e.align``, its ``align.*`` children and
+                ``e2e.depth``; a tree given by ``--root`` needs them), then
+                ``torch.profiler``'s device time by kernel name and the
+                device's busy share, for it and for DFFNet alone at
+                10 x 384 x 384 (batch 1 fp32, batch 4 bf16);
 * ``serving``   ``TimedForward`` at the two serving shapes, fp32 and bf16;
 * ``train``     ``torch.profiler`` over train steps at b4 10 x 224 x 224 (DFFNet
                 fp32, bf16 and remat; the end-to-end network fp32): device
@@ -371,56 +374,35 @@ def bench_mma(torch, _build, dev, smi, reps):
 
 
 def bench_stages(np, torch, tk, dev, smi, graph):
-    """E2E forward at the real-scene shape, by stage and by kernel name."""
-    from dffx_torch.models import alignnet
+    """E2E forward at the real-scene shape, by the program's spans
+    (``utils/profiling.py``: device ms of each) and by kernel name."""
+    from dffx_torch.utils import profiling
 
     net = make_net(graph, dev, e2e=True)
-    flow = net.optical_flow_aggregation
     rng = np.random.default_rng(1)
     fd = torch.from_numpy((1 / np.linspace(0.2, 3.0, 10, dtype=np.float32))[None]).to(dev)
     fovs = torch.from_numpy(np.linspace(1.0, 1.03, 10, dtype=np.float32)[None]).to(dev)
-    spans = []  # (stage, start event, end event)
-
-    def timed(stage, fn):
-        def run(*a, **k):
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-            out = fn(*a, **k)
-            end.record()
-            spans.append((stage, start, end))
-            return out
-        return run
-
-    stages = {"DFFNet": net.DFF_net, "fe1 (rb_of_chain)": flow.OF_feature,
-              "fe2 (strided block + rb_of_chain)": flow.OF_feature1,
-              "fe3 (strided block + rb_of_chain)": flow.OF_feature2,
-              "conv1 head (stock, quarter res)": flow.conv1,
-              "conv2 head (stock, half res)": flow.conv2,
-              "conv3 head (motion_head_conv_chain + pool)": flow.conv3}
-    for stage, mod in stages.items():
-        mod.forward = timed(stage, mod.forward)
-    warp_cf, alignnet.warp_cf = alignnet.warp_cf, timed("four warps", alignnet.warp_cf)
+    stages = ("e2e.align", "align.features", "align.motion", "align.warp", "e2e.depth")
     for dtype in (torch.float32, torch.bfloat16):
         fs = torch.from_numpy(rng.uniform(-1, 1, (1, 10, EH, EW, 3)).astype(np.float32)).to(
             dev, dtype)
         totals, runs = [], []
         with torch.inference_mode():
             for i in range(5):
-                spans.clear()
+                profiling.reset()
                 start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                 start.record()
-                net(fs, fd, fovs)
+                with profiling.collect():
+                    net(fs, fd, fovs)
                 end.record()
                 torch.cuda.synchronize()
                 if i >= 2:  # two warm-up forwards
                     totals.append(start.elapsed_time(end))
-                    by = {}
-                    for stage, s, e in spans:
-                        by[stage] = by.get(stage, 0.0) + s.elapsed_time(e)
-                    runs.append(by)
-        med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+                    spans = profiling.spans()
+                    runs.append({k: spans[k][3] * 1e3 for k in stages})
+        med = {k: statistics.median(r[k] for r in runs) for k in stages}
         total = statistics.median(totals)
-        med["everything else (motion volumes, permutes)"] = total - sum(med.values())
+        med["everything else"] = total - med["e2e.align"] - med["e2e.depth"]
         emit({"what": "stages", "device": smi, "graph": graph,
               "dtype": str(dtype).split(".")[1],
               "shape": [1, 10, EH, EW], "forwards": len(totals), "total_ms": total,
@@ -428,7 +410,6 @@ def bench_stages(np, torch, tk, dev, smi, graph):
         emit({"what": "profile", "device": smi, "graph": graph, "model": "e2e", "batch": 1,
               "dtype": str(dtype).split(".")[1], "shape": [10, EH, EW],
               **profile_forwards(torch, lambda: net(fs, fd, fovs))})
-    alignnet.warp_cf = warp_cf
     # DFFNet alone at its serving shape: device time by kernel name, busy share
     dff = make_net(graph, dev, e2e=False)
     for dtype, batch in ((torch.float32, 1), (torch.bfloat16, 4)):
@@ -487,9 +468,10 @@ def profile_forwards(torch, forward, forwards: int = 3, grad: bool = False) -> d
         end.record()
         torch.cuda.synchronize()
     wall = start.elapsed_time(end)
-    # the kernels' own rows only: an operator's row repeats its kernels' time
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # the kernels' own rows only: an operator's row, or a span's range on the
+    # device (a user annotation), repeats its kernels' time
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
     return {"forwards": forwards, "wall_ms_per_forward": wall / forwards,
             "device_busy_share": sum(r[1] for r in rows) / wall,

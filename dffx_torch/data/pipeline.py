@@ -22,6 +22,8 @@ from typing import Dict, Iterable, Iterator, Sequence, Tuple
 import numpy as np
 import torch
 
+from dffx_torch.utils import profiling
+
 
 def _stack_batch(samples: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
     # "unpadded" (h, w) tuples stack to a (B, 2) int array — batched eval
@@ -128,7 +130,11 @@ def device_prefetch(
     allocator does not hand its memory to the copy stream while the
     consumer's work still reads it.  On the CPU the arrays become tensors
     (``torch.as_tensor``, no copy).  A failure to pin or copy raises to the
-    consumer; there is no pageable or synchronous fallback."""
+    consumer; there is no pageable or synchronous fallback.
+
+    Spans (``utils/profiling.py``): ``prefetch.produce`` on the producer
+    thread a batch (pin and enqueue its copies), ``prefetch.wait`` on the
+    consumer around each take from the queue."""
     device = torch.device(device)
     cuda = device.type == "cuda"
     copy_stream = torch.cuda.Stream(device) if cuda else None
@@ -140,8 +146,9 @@ def device_prefetch(
     def put(batch):
         chosen = [k for k in keys if k in batch]
         if not cuda:
-            return batch, {k: torch.as_tensor(batch[k]) for k in chosen}, None
-        with torch.cuda.stream(copy_stream):
+            with profiling.span("prefetch.produce", device):
+                return batch, {k: torch.as_tensor(batch[k]) for k in chosen}, None
+        with torch.cuda.stream(copy_stream), profiling.span("prefetch.produce", device):
             on_device = {k: torch.from_numpy(np.ascontiguousarray(batch[k])).pin_memory()
                          .to(device, non_blocking=True) for k in chosen}
             done = torch.cuda.Event()
@@ -174,7 +181,8 @@ def device_prefetch(
     t.start()
     try:
         while True:
-            item = buf.get()
+            with profiling.span("prefetch.wait", device):
+                item = buf.get()
             if item is sentinel:
                 break
             batch, on_device, done = item

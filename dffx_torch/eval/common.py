@@ -19,6 +19,7 @@ from dffx_torch.models import E2ENetwork, Network, e2e_init_params, init_params
 from dffx_torch.models.layers import spatial_serving
 from dffx_torch.models.packed import PACKED_DEFAULT
 from dffx_torch.parallel import distributed, make_mesh
+from dffx_torch.utils import profiling
 
 
 def load_params_auto(source: Union[str, int], *, device="cuda", e2e: bool = False,
@@ -67,7 +68,13 @@ class TimedForward:
     Only the chains split: every rank runs the rest of the forward whole and
     holds the whole model and stack, so ``spatial > 1`` saves no memory and
     was slower than one card at every shape measured (``PERF.md``; ROADMAP
-    queue 1 item 10 would shard every stage)."""
+    queue 1 item 10 would shard every stage).
+
+    Spans (``utils/profiling.py``): ``serve.stage_in``, the inputs' copies
+    to the device, with the counter ``serve.staged_bytes``
+    (``_count_staged``); ``serve.forward``, the model call, whose host time
+    is the time to enqueue the forward and whose device time on the card is
+    this class's own pair of events."""
 
     def __init__(self, model: nn.Module, *, dtype: torch.dtype = torch.float32,
                  spatial: int = 1, spatial_pallas: Optional[bool] = None):
@@ -96,20 +103,28 @@ class TimedForward:
             return self.model(fs, *rest)
 
     def __call__(self, fs, focus_dists, *extra):
-        fs = torch.as_tensor(fs).to(self.device, self.dtype)
-        rest = [torch.as_tensor(a).to(self.device, torch.float32) for a in (focus_dists, *extra)]
+        with profiling.span("serve.stage_in", self.device):
+            sources = [torch.as_tensor(a) for a in (fs, focus_dists, *extra)]
+            staged = [sources[0].to(self.device, self.dtype)] + [
+                s.to(self.device, torch.float32) for s in sources[1:]]
+        if profiling.enabled():
+            _count_staged(sources, staged)
+        fs, rest = staged[0], staged[1:]
         with torch.inference_mode():
             if self.device.type == "cuda":
                 stream = torch.cuda.current_stream(self.device)
                 start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                 start.record(stream)
-                outs = self._forward(fs, rest)
-                end.record(stream)
+                # the span's host time is the enqueue; its device time, these events'
+                with profiling.span("serve.forward", self.device, events=(start, end)):
+                    outs = self._forward(fs, rest)
+                    end.record(stream)
                 end.synchronize()
                 seconds = start.elapsed_time(end) / 1e3
             else:
                 t0 = time.perf_counter()
-                outs = self._forward(fs, rest)
+                with profiling.span("serve.forward", self.device):
+                    outs = self._forward(fs, rest)
                 seconds = time.perf_counter() - t0
         self.total += seconds
         self.count += int(fs.shape[0])
@@ -118,6 +133,14 @@ class TimedForward:
     @property
     def avg_time(self) -> float:
         return self.total / max(self.count, 1)
+
+
+def _count_staged(sources, staged) -> None:
+    """Counter ``serve.staged_bytes``: bytes of the inputs that came to the
+    model's device from elsewhere, as the model gets them (a CPU source is
+    cast on the host before it crosses)."""
+    profiling.count("serve.staged_bytes", sum(t.nbytes for s, t in zip(sources, staged)
+                                              if s.device != t.device))
 
 
 def cli_device(name: str) -> torch.device:

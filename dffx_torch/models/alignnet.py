@@ -20,6 +20,11 @@ motion through the warp's interpolation matrices; ``remat`` recomputes the
 pyramid levels and the warp + head blocks in the backward
 (``layers.ckpt_stage``).  Activations are ``(B, C, N, H, W)`` inside; the
 public forward keeps the JAX layout.
+
+Spans (``utils/profiling.py``): ``E2ENetwork`` is ``e2e.align`` (FlowNetwork,
+its warps included) then ``e2e.depth`` (DFFNet's own three); FlowNetwork is
+``align.features`` (the pyramid), ``align.motion`` (the three warp + head
+blocks) and ``align.warp`` (the stack's final warp).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from dffx_torch.ops.kernels import (ParamCache, motion_head_conv_chain, motion_h
                                     rb_of_chain, rb_of_chain_params)
 from dffx_torch.ops.pool import adaptive_avg_pool_focus
 from dffx_torch.ops.warp import flow_cf, warp_cf
+from dffx_torch.utils import profiling
 
 ALPHA_DAMPING = 0.001  # `End_to_End.py:79,:88,:99`
 N_MOTION = 10  # AdaptiveAvgPool3d((10,1,1)): motion vectors per stack (`:40`)
@@ -176,18 +182,22 @@ class FlowNetwork(nn.Module):
         if tuple(fovs.shape) != (b, n):
             raise ValueError(f"fovs must be (B, N) = {(b, n)}, got {tuple(fovs.shape)}")
         stage = functools.partial(ckpt_stage, remat)
-        x = fs.permute(0, 4, 1, 2, 3).contiguous()  # (B, 3, N, H, W)
-        fe1 = stage(self.OF_feature, x)      # 8ch @ 1/1
-        fe2 = stage(self.OF_feature1, fe1)   # 16ch @ 1/2
-        fe3 = stage(self.OF_feature2, fe2)   # 32ch @ 1/4
+        with profiling.span("align.features", fs.device):
+            x = fs.permute(0, 4, 1, 2, 3).contiguous()  # (B, 3, N, H, W)
+            fe1 = stage(self.OF_feature, x)      # 8ch @ 1/1
+            fe2 = stage(self.OF_feature1, fe1)   # 16ch @ 1/2
+            fe3 = stage(self.OF_feature2, fe2)   # 32ch @ 1/4
 
-        fovs = fovs.float()
-        zeros = torch.zeros_like(fovs)
-        motion = stage(functools.partial(self._warp_head, self.conv1), fe3, fovs, zeros, zeros)
-        for head, feat in ((self.conv2, fe2), (self.conv3, fe1)):
-            motion = motion + stage(functools.partial(self._warp_head, head), feat,
-                                    motion[..., 0] + fovs, motion[..., 1], motion[..., 2])
-        warped, _, _ = warp_cf(x, motion[..., 0] + fovs, motion[..., 1], motion[..., 2])
+        with profiling.span("align.motion", fs.device):
+            fovs = fovs.float()
+            zeros = torch.zeros_like(fovs)
+            motion = stage(functools.partial(self._warp_head, self.conv1), fe3, fovs, zeros,
+                           zeros)
+            for head, feat in ((self.conv2, fe2), (self.conv3, fe1)):
+                motion = motion + stage(functools.partial(self._warp_head, head), feat,
+                                        motion[..., 0] + fovs, motion[..., 1], motion[..., 2])
+        with profiling.span("align.warp", fs.device):
+            warped, _, _ = warp_cf(x, motion[..., 0] + fovs, motion[..., 1], motion[..., 2])
         return warped.permute(0, 2, 3, 4, 1), motion
 
 
@@ -207,8 +217,11 @@ class E2ENetwork(nn.Module):
         """fs ``(B, 10, H, W, 3)`` with H, W multiples of 32; focus_dists and
         fovs ``(B, 10)``.  Returns ``(mid_out, pred1, pred2, pred3, warped)``:
         four ``(B, H, W)`` depth maps and the aligned stack."""
-        warped, _ = self.optical_flow_aggregation(fs, fovs, remat=remat)
-        return (*self.DFF_net(warped, focus_dists, remat=remat), warped)
+        with profiling.span("e2e.align", fs.device):
+            warped, _ = self.optical_flow_aggregation(fs, fovs, remat=remat)
+        with profiling.span("e2e.depth", fs.device):
+            depth = self.DFF_net(warped, focus_dists, remat=remat)
+        return (*depth, warped)
 
 
 def e2e_init_params(seed: int = 0) -> Dict[str, np.ndarray]:

@@ -21,6 +21,14 @@ parameters and the state_dict are the same either way.  ``packed`` is an eval
 graph: in training mode (``.train()``) the forward runs unpacked, on stock
 ops, as ``dffx`` does under ``Ctx.train``; ``remat`` then recomputes the
 stages ``dffnet_apply`` checkpoints (``layers.ckpt_stage``).
+
+The forward is three spans (``utils/profiling.py``) over contiguous code:
+``dffnet.features`` (the transpose, FM_module, both EFD+SRD, hourglassup),
+``dffnet.aggregate`` (the confidence head and ``mid_out``, dres0 to
+hourglass(16), the costs of ``pred1`` and ``pred2``) and
+``dffnet.full_res`` (the full-resolution stage and the heads ``pred1`` to
+``pred3``).  They sit outside ``ckpt_stage``'s functions, so a ``remat``
+recompute fires none.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ from dffx_torch.models.packed import (PACKED_DEFAULT, efd_params, pack, packed_e
                                       stage_params, stage_sources)
 from dffx_torch.ops import avg_pool3d, softplus_argmax, upsample_bilinear
 from dffx_torch.ops.kernels import ParamCache
+from dffx_torch.utils import profiling
 
 
 class Hourglass(nn.Module):
@@ -185,49 +194,53 @@ class DFFNet(nn.Module):
         height, width = fs.shape[2], fs.shape[3]
         if height % 32 or width % 32:
             raise ValueError(f"H and W must be multiples of 32, got {height}x{width}")
-        x = fs.permute(0, 4, 1, 2, 3).contiguous()  # the one transpose: (B,3,N,H,W)
         packed = self.packed and not self.training
         stage = functools.partial(ckpt_stage, remat)
 
         def head(cost, fd):
             return softplus_argmax(upsample_bilinear(cost, (height, width)), fd)
 
-        fm = stage(self.FM_measure, x)  # 8ch @ 1/1
-        if packed:
-            fm_packed = pack(fm)  # read by FM_conv1.0 and by dres4
-            half = self._packed_down(0, fm, fm_packed)
-            quad = self._packed_down(1, half)
-        else:
-            half = stage(self.FM_conv1, fm)
-            quad = stage(self.FM_conv2, half)
-        vol = stage(self.SPP_module, quad)  # 32ch @ 1/8
+        with profiling.span("dffnet.features", fs.device):
+            x = fs.permute(0, 4, 1, 2, 3).contiguous()  # the one transpose: (B,3,N,H,W)
+            fm = stage(self.FM_measure, x)  # 8ch @ 1/1
+            if packed:
+                fm_packed = pack(fm)  # read by FM_conv1.0 and by dres4
+                half = self._packed_down(0, fm, fm_packed)
+                quad = self._packed_down(1, half)
+            else:
+                half = stage(self.FM_conv1, fm)
+                quad = stage(self.FM_conv2, half)
+            vol = stage(self.SPP_module, quad)  # 32ch @ 1/8
 
-        conf = stage(lambda v: self.confidence(v)[:, 0], vol)  # (B, N, h8, w8)
-        mid_out = stage(head, conf, focus_dists)
+        with profiling.span("dffnet.aggregate", fs.device):
+            conf = stage(lambda v: self.confidence(v)[:, 0], vol)  # (B, N, h8, w8)
+            mid_out = stage(head, conf, focus_dists)
 
-        x = stage(lambda v: self.deconv_1(self.dres0(v)), vol)  # 32ch @ 1/4
-        out, pre = stage(lambda x, q: self.dres2(torch.cat([x, q], dim=1), None, None), x, quad)
-        out_in = x + out
-        cost1 = self.classif1(out_in)[:, 0]
+            x = stage(lambda v: self.deconv_1(self.dres0(v)), vol)  # 32ch @ 1/4
+            out, pre = stage(lambda x, q: self.dres2(torch.cat([x, q], dim=1), None, None),
+                             x, quad)
+            out_in = x + out
+            cost1 = self.classif1(out_in)[:, 0]
 
-        def dres3(out_in, half, pre, out):
-            out2 = self.deconv_2(out_in)  # 16ch @ 1/2
-            return (out2, *self.dres3(torch.cat([out2, half], dim=1), pre, out))
+            def dres3(out_in, half, pre, out):
+                out2 = self.deconv_2(out_in)  # 16ch @ 1/2
+                return (out2, *self.dres3(torch.cat([out2, half], dim=1), pre, out))
 
-        out2, out, pre = stage(dres3, out_in, half, pre, out)
-        out_in = out2 + out
-        cost2 = self.classif2(out_in)[:, 0]
+            out2, out, pre = stage(dres3, out_in, half, pre, out)
+            out_in = out2 + out
+            cost2 = self.classif2(out_in)[:, 0]
 
-        if packed:
-            params = self._tail_params.or_packed(
-                out_in, *stage_sources(self.deconv_3, self.dres4, self.classif3[0]))
-            cost3 = packed_stage(self.dres4, out_in, fm_packed, pre, out, params)
-        else:
-            cost3 = stage(self._tail, out_in, fm, pre, out)
+        with profiling.span("dffnet.full_res", fs.device):
+            if packed:
+                params = self._tail_params.or_packed(
+                    out_in, *stage_sources(self.deconv_3, self.dres4, self.classif3[0]))
+                cost3 = packed_stage(self.dres4, out_in, fm_packed, pre, out, params)
+            else:
+                cost3 = stage(self._tail, out_in, fm, pre, out)
 
-        pred1 = stage(head, cost1, focus_dists)
-        pred2 = stage(head, cost2, focus_dists)
-        pred3 = stage(softplus_argmax, cost3, focus_dists)
+            pred1 = stage(head, cost1, focus_dists)
+            pred2 = stage(head, cost2, focus_dists)
+            pred3 = stage(softplus_argmax, cost3, focus_dists)
         return mid_out, pred1, pred2, pred3
 
 

@@ -28,7 +28,8 @@ the card; this is the transport the backend rule implies, not a fallback.
 NCCL moves CUDA tensors directly.
 
 ``traffic`` counts the bytes each kind of collective moved on this rank since
-``reset_traffic()``.
+``reset_traffic()``; each all-reduce, broadcast and all-gather is also the
+span ``collective.<kind>`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -40,6 +41,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from dffx_torch.utils import profiling
 
 _ENV_COORD = "DFFX_COORDINATOR"
 _ENV_NPROC = "DFFX_NUM_PROCESSES"
@@ -171,24 +174,26 @@ def _on_host(group) -> bool:
     return dist.get_backend(group) == dist.Backend.GLOO
 
 
-def _staged(t: torch.Tensor, group, run) -> torch.Tensor:
-    """``run(payload)`` on ``t``'s data; on a gloo group a CUDA tensor goes
-    to the host for it and back (the backend takes host tensors).  Returns
-    the payload as ``run`` left it, on ``t``'s device."""
-    if t.is_cuda and _on_host(group):
-        host = t.detach().cpu()
-        run(host)
-        traffic["host_staged"] += 2 * host.numel() * host.element_size()
-        return host.to(t.device)
-    payload = t.contiguous()
-    run(payload)
-    return payload
+def _staged(t: torch.Tensor, group, run, kind: str) -> torch.Tensor:
+    """``run(payload)`` on ``t``'s data, as the span ``collective.<kind>``;
+    on a gloo group a CUDA tensor goes to the host for it and back (the
+    backend takes host tensors).  Returns the payload as ``run`` left it, on
+    ``t``'s device."""
+    with profiling.span(f"collective.{kind}", t.device):
+        if t.is_cuda and _on_host(group):
+            host = t.detach().cpu()
+            run(host)
+            traffic["host_staged"] += 2 * host.numel() * host.element_size()
+            return host.to(t.device)
+        payload = t.contiguous()
+        run(payload)
+        return payload
 
 
 def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     """Sum ``t`` over ``group`` in place; returns it."""
     traffic["all_reduce"] += t.numel() * t.element_size()
-    out = _staged(t, group, lambda p: dist.all_reduce(p, group=group))
+    out = _staged(t, group, lambda p: dist.all_reduce(p, group=group), "all_reduce")
     if out is not t:
         t.copy_(out)
     return t
@@ -197,7 +202,8 @@ def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
 def broadcast_(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
     """``t`` of global rank ``src`` into ``t`` of every rank of ``group``."""
     traffic["broadcast"] += t.numel() * t.element_size()
-    out = _staged(t, group, lambda p: dist.broadcast(p, src=src, group=group))
+    out = _staged(t, group, lambda p: dist.broadcast(p, src=src, group=group),
+                  "broadcast")
     if out is not t:
         t.copy_(out)
     return t
@@ -214,7 +220,7 @@ def all_gather_cat(t: torch.Tensor, dim: int, group) -> torch.Tensor:
         parts[:] = [torch.empty_like(p) for _ in range(n)]
         dist.all_gather(parts, p, group=group)
 
-    _staged(t, group, gather)
+    _staged(t, group, gather, "all_gather")
     if t.is_cuda and _on_host(group):
         traffic["host_staged"] += (n - 1) * t.numel() * t.element_size()
         return torch.cat(parts, dim).to(t.device)

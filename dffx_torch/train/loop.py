@@ -28,6 +28,12 @@ as ``nn.DataParallel`` did, with rank 0's running statistics broadcast after
 the step (``dffx``'s replica-0 update).  Every rank steps the same Adam on the
 same summed gradients from the parameters ``create_train_state`` broadcast,
 so the parameters stay the same bits on every rank.
+
+Spans (``utils/profiling.py``) a step: ``train.forward`` (the model and the
+loss), ``train.backward`` (``zero_grad``, the backward, the zero gradients
+of parameters the loss does not reach), ``train.exchange`` (with a group:
+the gradient and loss all-reduces, the per-shard broadcast) and
+``train.optimizer`` (Adam's step).
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from torch import nn
 from dffx_torch.models.layers import data_parallel
 from dffx_torch.parallel import distributed
 from dffx_torch.parallel.mesh import DATA_AXIS, Mesh, replicate
+from dffx_torch.utils import profiling
 
 BETAS = (0.9, 0.99)  # `train_code_DDFF.py:66`
 ADAM_EPS = 1e-8
@@ -206,32 +213,37 @@ def make_train_step(lr: float, loss_cfg: LossConfig, *, e2e: bool = False,
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         model, opt = state.model.train(), state.optimizer
         extra = (batch["fovs"],) if e2e else ()
-        with data_parallel(data_group if bn_mode == "sync" else None):
-            outs = model(batch["fs"].to(compute_dtype), batch["focus_dists"], *extra,
-                         remat=remat)
-        heads = tuple(o.to(torch.promote_types(o.dtype, torch.float32)) for o in outs[:4])
-        total, logs = total_loss(heads, batch, loss_cfg, group=data_group)
-        opt.zero_grad(set_to_none=True)
-        total.backward()
-        params = [p for g in opt.param_groups for p in g["params"]]
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+        device = batch["fs"].device
+        with profiling.span("train.forward", device):
+            with data_parallel(data_group if bn_mode == "sync" else None):
+                outs = model(batch["fs"].to(compute_dtype), batch["focus_dists"], *extra,
+                             remat=remat)
+            heads = tuple(o.to(torch.promote_types(o.dtype, torch.float32)) for o in outs[:4])
+            total, logs = total_loss(heads, batch, loss_cfg, group=data_group)
+        with profiling.span("train.backward", device):
+            opt.zero_grad(set_to_none=True)
+            total.backward()
+            params = [p for g in opt.param_groups for p in g["params"]]
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         logs = {k: v.detach() for k, v in logs.items()}
         if data_group is not None:
-            _sum_grads(params, data_group)
-            parts = distributed.all_reduce_(torch.stack(list(logs.values())), data_group)
-            logs = dict(zip(logs, parts))
-            if bn_mode == "per_shard":
-                first = mesh.ranks[DATA_AXIS][0]
-                for name, buf in model.named_buffers():
-                    if name.endswith(("running_mean", "running_var", "num_batches_tracked")):
-                        distributed.broadcast_(buf, first, data_group)
+            with profiling.span("train.exchange", device):
+                _sum_grads(params, data_group)
+                parts = distributed.all_reduce_(torch.stack(list(logs.values())), data_group)
+                logs = dict(zip(logs, parts))
+                if bn_mode == "per_shard":
+                    first = mesh.ranks[DATA_AXIS][0]
+                    for name, buf in model.named_buffers():
+                        if name.endswith(("running_mean", "running_var", "num_batches_tracked")):
+                            distributed.broadcast_(buf, first, data_group)
         if sanitize:
             logs["nonfinite_grads"] = nonfinite_count(p.grad for p in params)
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
+        with profiling.span("train.optimizer", device):
+            for group in opt.param_groups:
+                group["lr"] = lr
+            opt.step()
         state.step += 1
         return state, logs
 

@@ -1,0 +1,8 @@
+"""Device ms a step of the program's span train.forward (the model and the
+loss), in the traced slice."""
+
+from portbench import program_spans
+
+
+def read(r):
+    return program_spans.span_ms(r, "train.forward", "device", "call")
