@@ -22,6 +22,12 @@ graph: in training mode (``.train()``) the forward runs unpacked, on stock
 ops, as ``dffx`` does under ``Ctx.train``; ``remat`` then recomputes the
 stages ``dffnet_apply`` checkpoints (``layers.ckpt_stage``).
 
+FM_module's kernel chain runs channel-first; every activation after it is
+laid out as ``ops/conv.py::activation_format`` says from its dtype and the
+mode: NDHWC for a 16-bit eval forward, so that cuDNN's convs and deconvs read
+and write their own layout and transpose nothing, NCDHW otherwise.  The one
+conversion is ``pack(fm)``'s copy (packed) or one of ``fm`` (unpacked).
+
 The forward is three spans (``utils/profiling.py``) over contiguous code:
 ``dffnet.features`` (the transpose, FM_module, both EFD+SRD, hourglassup),
 ``dffnet.aggregate`` (the confidence head and ``mid_out``, dres0 to
@@ -54,6 +60,7 @@ from dffx_torch.models.layers import (
 from dffx_torch.models.packed import (PACKED_DEFAULT, efd_params, pack, packed_efd, packed_stage,
                                       stage_params, stage_sources)
 from dffx_torch.ops import avg_pool3d, softplus_argmax, upsample_bilinear
+from dffx_torch.ops.conv import activation_format
 from dffx_torch.ops.kernels import ParamCache
 from dffx_torch.utils import profiling
 
@@ -202,12 +209,15 @@ class DFFNet(nn.Module):
 
         with profiling.span("dffnet.features", fs.device):
             x = fs.permute(0, 4, 1, 2, 3).contiguous()  # the one transpose: (B,3,N,H,W)
-            fm = stage(self.FM_measure, x)  # 8ch @ 1/1
+            fm = stage(self.FM_measure, x)  # 8ch @ 1/1, NCDHW
+            # from here on every activation is laid out as activation_format says
+            fmt = activation_format(fm, self.training)
             if packed:
-                fm_packed = pack(fm)  # read by FM_conv1.0 and by dres4
+                fm_packed = pack(fm, fmt)  # read by FM_conv1.0 and by dres4
                 half = self._packed_down(0, fm, fm_packed)
                 quad = self._packed_down(1, half)
             else:
+                fm = fm.contiguous(memory_format=fmt)
                 half = stage(self.FM_conv1, fm)
                 quad = stage(self.FM_conv2, half)
             vol = stage(self.SPP_module, quad)  # 32ch @ 1/8

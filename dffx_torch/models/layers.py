@@ -9,7 +9,10 @@ use, as ``dffx`` casts its kernels).  In eval mode BN normalises with the
 running statistics and the full-resolution chains run as the CUDA kernels; in
 training mode (``.train()``) BN takes batch statistics and updates the running
 ones, and every module runs on stock ops, as ``dffx`` under ``Ctx.train``
-(the kernels have no backward).  Activations are ``(B, C, N, H, W)``.
+(the kernels have no backward).  Activations are ``(B, C, N, H, W)``, laid
+out NCDHW, or NDHWC where ``DFFNet`` keeps its 16-bit eval activations so
+(``ops/conv.py::activation_format``): every layer keeps the layout it is
+given.
 
 Two context variables reach the layers from the caller, as ``dffx``'s
 ``Ctx`` does: ``data_parallel(group)`` makes every train-mode BatchNorm take
@@ -39,34 +42,50 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from dffx_torch.ops import batch_norm, batch_norm_train, bn_fused_affine, conv3d, deconv3d
+from dffx_torch.ops.conv import is_ndhwc, ndhwc_weight
 from dffx_torch.ops.halo import sharded_rows, spatial_ok
 from dffx_torch.ops.kernels import (ParamCache, fm_conv_bn_relu, fm_conv_params, rb2d_params,
                                     rb2d_residual, srd_attention_params, srd_attention_residual,
                                     tensor_stamp)
 
 
+def _weight(m, x: torch.Tensor) -> torch.Tensor:
+    """The weight of the conv or deconv ``m`` as it reads ``x``: for an NDHWC
+    ``x`` on the card, cast and NDHWC (``ndhwc_weight``), kept in the
+    module's ``ParamCache`` until the weight changes, unless autograd records
+    it; else the weight itself, which ``conv3d`` casts at each call."""
+    w = m.weight
+    if not is_ndhwc(x) or (torch.is_grad_enabled() and w.requires_grad):
+        return w
+    kept = m._kept(x, w)
+    return w if kept is None else kept
+
+
 class Conv3d(nn.Conv3d):
-    """``nn.Conv3d`` that runs in the input's dtype; bias-free unless asked."""
+    """``nn.Conv3d`` that runs in the input's dtype and layout; bias-free
+    unless asked."""
 
     def __init__(self, cin, cout, k, *, stride=1, padding=0, dilation=1, bias=False):
         super().__init__(cin, cout, k, stride=stride, padding=padding,
                          dilation=dilation, bias=bias)
+        self._kept = ParamCache(ndhwc_weight)
 
     def forward(self, x):
-        return conv3d(x, self.weight, bias=self.bias, stride=self.stride,
+        return conv3d(x, _weight(self, x), bias=self.bias, stride=self.stride,
                       padding=self.padding, dilation=self.dilation)
 
 
 class ConvTranspose3d(nn.ConvTranspose3d):
     """The reference's only deconv: k3, pad 1, stride (1,2,2), output_padding
-    (0,1,1), bias-free; doubles H and W."""
+    (0,1,1), bias-free; doubles H and W.  Runs in the input's layout."""
 
     def __init__(self, cin, cout):
         super().__init__(cin, cout, 3, stride=(1, 2, 2), padding=1,
                          output_padding=(0, 1, 1), bias=False)
+        self._kept = ParamCache(ndhwc_weight)
 
     def forward(self, x):
-        return deconv3d(x, self.weight)
+        return deconv3d(x, _weight(self, x))
 
 
 #: set while ``torch.utils.checkpoint`` recomputes a stage in the backward

@@ -24,8 +24,12 @@ weight as ``(kd, kh, kw, Cin, Cout)``, as the JAX package's do.
 
 Packed weights are derived, never stored: the state_dict is that of the
 unpacked model.  A caller keeps them in a ``ParamCache`` (``DFFNet`` does),
-which holds them on a CUDA device, in the activation dtype, until a source
-weight changes; for a CPU tensor they are built on every call.
+which holds them on a CUDA device, in the activation dtype and layout, until a
+source weight changes; for a CPU tensor they are built on every call.
+
+``pack``, ``unpack`` and ``packed_efd`` return the layout they are given, NCDHW
+or NDHWC (``ops/conv.py``: DFFNet's 16-bit eval activations), and ``pack``
+writes its one copy in the layout its caller asks for.
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from dffx_torch.ops.conv import conv3d, is_ndhwc, layout_of
 
 #: whether ``DFFNet`` (and ``load_params_auto``) runs packed unless told
 #: otherwise, on the CPU as on the card.  Measured on an NVIDIA H100 80GB HBM3
@@ -52,16 +58,26 @@ _PAD_DECONV = (0, 1, 0, 1, 1, 1)
 _PAD_S2 = (1, 0, 1, 0, 1, 1)
 
 
-def pack(x: torch.Tensor) -> torch.Tensor:
-    """(B, C, N, H, W) -> (B, 4C, N, H/2, W/2), channel = phase * C + c."""
+def pack(x: torch.Tensor, memory_format: Optional[torch.memory_format] = None
+         ) -> torch.Tensor:
+    """(B, C, N, H, W) -> (B, 4C, N, H/2, W/2), channel = phase * C + c, in
+    one copy laid out as ``memory_format`` (default: x's own layout)."""
     b, c, n, h, w = x.shape
+    fmt = layout_of(x) if memory_format is None else memory_format
     x = x.reshape(b, c, n, h // 2, 2, w // 2, 2)
+    if fmt == torch.channels_last_3d:
+        x = x.permute(0, 2, 3, 5, 4, 6, 1).reshape(b, n, h // 2, w // 2, 4 * c)
+        return x.permute(0, 4, 1, 2, 3)
     return x.permute(0, 4, 6, 1, 2, 3, 5).reshape(b, 4 * c, n, h // 2, w // 2)
 
 
 def unpack(x: torch.Tensor) -> torch.Tensor:
-    """Inverse of :func:`pack`."""
+    """Inverse of :func:`pack`, in x's layout."""
     b, c4, n, hh, wh = x.shape
+    if is_ndhwc(x):
+        x = x.permute(0, 2, 3, 4, 1).reshape(b, n, hh, wh, 2, 2, c4 // 4)
+        x = x.permute(0, 1, 2, 4, 3, 5, 6).reshape(b, n, 2 * hh, 2 * wh, c4 // 4)
+        return x.permute(0, 4, 1, 2, 3)
     x = x.reshape(b, 2, 2, c4 // 4, n, hh, wh)
     return x.permute(0, 3, 4, 5, 1, 6, 2).reshape(b, c4 // 4, n, 2 * hh, 2 * wh)
 
@@ -262,8 +278,8 @@ def _affine(x: torch.Tensor, aff: Affine) -> torch.Tensor:
 
 def efd_params(x: torch.Tensor, w_stride: torch.Tensor) -> torch.Tensor:
     """What ``packed_efd`` derives from an EFD's weights, for a ``ParamCache``:
-    the strided conv's packed weight in x's dtype."""
-    return pack_conv_s2(w_stride.to(x.dtype))
+    the strided conv's packed weight in x's dtype and layout."""
+    return pack_conv_s2(w_stride.to(x.dtype)).contiguous(memory_format=layout_of(x))
 
 
 def packed_efd(efd, xp: torch.Tensor, w_s2: torch.Tensor) -> torch.Tensor:
@@ -273,11 +289,16 @@ def packed_efd(efd, xp: torch.Tensor, w_s2: torch.Tensor) -> torch.Tensor:
     * strided-conv branch: the packed stride-2 kernel emits the
       half-resolution (natural) output directly;
     * maxpool branch: ``MaxPool3d((1,2,2))`` windows are exactly the aligned
-      2x2 phase blocks, so the pool is a max over the 4 phase channel groups.
+      2x2 phase blocks, so the pool is a max over the 4 phase channel groups
+      (an NDHWC ``xp``: over its channel-last view, so the output stays NDHWC).
     """
-    a = efd.stride_conv[1](F.conv3d(F.pad(xp, _PAD_S2), w_s2))
+    a = efd.stride_conv[1](conv3d(F.pad(xp, _PAD_S2), w_s2))
     b, c4, n, hh, wh = xp.shape
-    mp = xp.reshape(b, 4, c4 // 4, n, hh, wh).amax(1)
+    if is_ndhwc(xp):
+        mp = xp.permute(0, 2, 3, 4, 1).reshape(b, n, hh, wh, 4, c4 // 4).amax(4)
+        mp = mp.permute(0, 4, 1, 2, 3)
+    else:
+        mp = xp.reshape(b, 4, c4 // 4, n, hh, wh).amax(1)
     return torch.relu(a + efd.max_pooling[1](mp))
 
 
@@ -290,16 +311,20 @@ def stage_params(x: torch.Tensor, w_up, aff_up: Affine, w0, aff0: Affine, w1, w6
                  aff6: Affine, w_classif) -> tuple:
     """What ``packed_stage`` derives from the stage's weights and fused BN
     affines, for a ``ParamCache``, in x's dtype (cast before the gather: the
-    structural zeros stay exact): the up-deconv and its affine, the
-    hourglass's conv0 (its input is the concat of two packed tensors of
-    ``c`` channels each), conv1 (strided), conv6 (deconv) and its affine, and
-    the 1x1 head."""
-    dt = x.dtype
+    structural zeros stay exact), the conv weights in x's layout: the
+    up-deconv and its affine, the hourglass's conv0 (its input is the concat
+    of two packed tensors of ``c`` channels each), conv1 (strided), conv6
+    (deconv) and its affine, and the 1x1 head."""
+    dt, fmt = x.dtype, layout_of(x)
     c = w_up.shape[1]
-    return (pack_deconv(w_up.to(dt)), pack_affine(*aff_up, dt),
-            pack_conv_s1(w0.to(dt), in_groups=[c, c]), pack_affine(*aff0, dt),
-            pack_conv_s2(w1.to(dt)), pack_deconv(w6.to(dt)), pack_affine(*aff6, dt),
-            pack_conv_1x1(w_classif.to(dt)))
+
+    def laid(w):
+        return w.contiguous(memory_format=fmt)
+
+    return (laid(pack_deconv(w_up.to(dt))), pack_affine(*aff_up, dt),
+            laid(pack_conv_s1(w0.to(dt), in_groups=[c, c])), pack_affine(*aff0, dt),
+            laid(pack_conv_s2(w1.to(dt))), laid(pack_deconv(w6.to(dt))), pack_affine(*aff6, dt),
+            laid(pack_conv_1x1(w_classif.to(dt))))
 
 
 def stage_sources(deconv, hg, classif) -> tuple:
@@ -327,10 +352,10 @@ def packed_stage(hg, out_in: torch.Tensor, skip_packed: torch.Tensor,
     the long skip (``fm``) packed.  Returns the cost ``(B, N, H, W)``.
     """
     w_up, aff_up, w0, aff0, w1, w6, aff6, w_classif = params
-    x = _affine(F.conv3d(F.pad(out_in, _PAD_DECONV), w_up), aff_up)  # packed 4c
+    x = _affine(conv3d(F.pad(out_in, _PAD_DECONV), w_up), aff_up)  # packed 4c
     cat = torch.cat([x, skip_packed], dim=1)  # source-major packed 2c
-    pre_1 = torch.relu(_affine(F.conv3d(cat, w0, padding=1), aff0))
-    out = F.conv3d(F.pad(pre_1, _PAD_S2), w1)  # natural, half the stage resolution
+    pre_1 = torch.relu(_affine(conv3d(cat, w0, padding=1), aff0))
+    out = conv3d(F.pad(pre_1, _PAD_S2), w1)  # natural, half the stage resolution
     out = hg.interior(torch.relu(hg.conv1[0][1](out)), presqu, postsqu)
-    o6 = _affine(F.conv3d(F.pad(out, _PAD_DECONV), w6), aff6)
-    return unpack(F.conv3d(x + o6, w_classif))[:, 0]
+    o6 = _affine(conv3d(F.pad(out, _PAD_DECONV), w6), aff6)
+    return unpack(conv3d(x + o6, w_classif))[:, 0]

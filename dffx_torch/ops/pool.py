@@ -1,12 +1,16 @@
 """Pooling in ``(B, C, N, H, W)``: the EFD max-pool
 (`Depth_Estimation_Network.py:310`), the hourglassup avg-pool pyramid
 (`:149-153`) and the motion heads' ``AdaptiveAvgPool3d((10, 1, 1))``
-(`End_to_End/End_to_End.py:40`).  The focus axis N is never strided."""
+(`End_to_End/End_to_End.py:40`).  The focus axis N is never strided.
+The max- and avg-pools keep an NDHWC input NDHWC (``ops/conv.py``)."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.nn.modules.utils import _triple
+
+from dffx_torch.ops.conv import is_ndhwc
 
 
 def max_pool3d(x: torch.Tensor, window, stride=None) -> torch.Tensor:
@@ -15,8 +19,19 @@ def max_pool3d(x: torch.Tensor, window, stride=None) -> torch.Tensor:
 
 
 def avg_pool3d(x: torch.Tensor, window, stride=None) -> torch.Tensor:
-    """``nn.AvgPool3d(window, stride)``, no padding."""
-    return F.avg_pool3d(x, window, stride if stride is not None else window)
+    """``nn.AvgPool3d(window, stride)``, no padding.
+
+    ``F.avg_pool3d`` returns NCDHW whatever its input's layout, so an NDHWC
+    ``x`` pooled over H and W alone runs as ``F.avg_pool2d`` on its
+    channels-last ``(B * N, C, H, W)`` view: the same fp32 sum over the same
+    window in the same order, and an NDHWC output with no copy."""
+    window = _triple(window)
+    stride = _triple(stride if stride is not None else window)
+    if window[0] != 1 or stride[0] != 1 or not is_ndhwc(x):
+        return F.avg_pool3d(x, window, stride)
+    b, c, n, h, w = x.shape
+    y = F.avg_pool2d(x.transpose(1, 2).reshape(b * n, c, h, w), window[1:], stride[1:])
+    return y.reshape(b, n, c, *y.shape[2:]).transpose(1, 2)
 
 
 def adaptive_avg_pool_focus(x: torch.Tensor, n_out: int) -> torch.Tensor:

@@ -21,6 +21,11 @@ DFFNET_KERNELS = ("fm_conv_bn_relu", "rb2d_residual", "srd_attention_residual")
 E2E_LAUNCHES = {"fm_conv_bn_relu": 1, "rb2d_residual": 1, "srd_attention_residual": 1,
                 "rb_of_chain": 3, "motion_head_conv_chain": 1}
 CHAINS = [((3, 8), (8, 8)), ((16, 16),), ((32, 32),)]
+#: bf16 pred3 of a DFFNet forward kept NDHWC against the same forward kept
+#: NCDHW, over pred3's largest value: 2^-5, four bf16 units in the last place
+#: (the two layouts run other cuDNN algorithms, and each conv rounds its fp32
+#: sums to bf16; an H100 read 0.7-1.1 % at 2 x 10 x 64 x 96, PERF.md §6)
+PRED3_NCDHW_RTOL = 2.0 ** -5
 
 
 @pytest.fixture
@@ -670,6 +675,49 @@ def test_kept_packed_weights_follow_their_sources(cuda, rng):
     with torch.inference_mode():
         for g, w in zip(packed(fs, fd), other(fs, fd)):
             torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "unpacked"])
+def test_bf16_eval_forward_runs_every_stock_conv_ndhwc(cuda, rng, packed, monkeypatch):
+    """A bf16 eval DFFNet forward hands cuDNN NDHWC activations alone: every
+    stock conv and deconv counts ``stock.conv_ndhwc``, none
+    ``stock.conv_ncdhw``, no cuDNN layout transpose runs, and ``pred3`` is
+    that of the same forward kept NCDHW, within ``PRED3_NCDHW_RTOL``."""
+    import torch.nn.functional as F
+
+    from dffx_torch.eval import load_params_auto
+    from dffx_torch.models import dffnet
+    from dffx_torch.utils import profiling
+
+    fs = torch.from_numpy(rng.uniform(-1, 1, (2, 10, 64, 96, 3)).astype(np.float32))
+    fs = fs.to(cuda, torch.bfloat16)
+    fd = torch.from_numpy(np.tile(np.linspace(0.1, 1.5, 10, dtype=np.float32), (2, 1))).to(cuda)
+    net, plain = (load_params_auto(0, device=cuda, packed=packed) for _ in range(2))
+    convs = []
+    for name in ("conv3d", "conv2d", "conv_transpose3d", "linear"):
+        monkeypatch.setattr(F, name, lambda *a, _fn=getattr(F, name), **k:
+                            convs.append(_fn) or _fn(*a, **k))
+    with torch.inference_mode():
+        net(fs, fd)  # cuDNN's choice, the kept weights
+        convs.clear()
+        profiling.reset()
+        with profiling.collect():
+            got = net(fs, fd)
+        counted, calls = profiling.counters(), len(convs)
+        profiling.reset()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            net(fs, fd)
+            torch.cuda.synchronize()
+        profiling.reset()
+        assert counted == {"stock.conv_ndhwc": calls} and calls == 65
+        transposes = [e.key for e in prof.key_averages()
+                      if "nchwToNhwc" in e.key or "nhwcToNchw" in e.key]
+        assert not transposes, transposes
+        monkeypatch.setattr(dffnet, "activation_format",
+                            lambda x, training: torch.contiguous_format)
+        want = plain(fs, fd)
+    gap = (got[3].float() - want[3].float()).abs().max().item()
+    assert gap <= PRED3_NCDHW_RTOL * want[3].float().abs().max().item(), gap
 
 
 # --- the command lines and the prefetch on the card ---------------------------

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 
 from dffx import ops as jops
 from dffx_torch import ops as tops
+from dffx_torch.ops.conv import activation_format, is_ndhwc
 
 ATOL = 2e-5
 
@@ -80,6 +81,88 @@ def test_pool3d(rng, op, window):
     ref = getattr(jops, f"{op}_pool3d")(jnp.asarray(x), window)
     got = getattr(tops, f"{op}_pool3d")(_to_t(x), window)
     np.testing.assert_allclose(_to_np(got), np.asarray(ref), atol=ATOL)
+
+
+@pytest.mark.parametrize("op", ["max", "avg"])
+@pytest.mark.parametrize("window", [(1, 2, 2), (1, 4, 4), (1, 8, 8)])
+def test_pool3d_keeps_ndhwc(rng, op, window):
+    """An NDHWC input pools to an NDHWC output, bit-equal to the NCDHW pool."""
+    x = _to_t(rng.standard_normal((2, 5, 16, 24, 4), dtype=np.float32))
+    pool = getattr(tops, f"{op}_pool3d")
+    got = pool(x.contiguous(memory_format=torch.channels_last_3d), window)
+    assert is_ndhwc(got) and torch.equal(got, pool(x, window))
+
+
+@pytest.mark.parametrize("kd,stride,padding,dilation,bias", [
+    (3, 1, (1, 0, 0), 1, False), (3, (2, 1, 1), (2, 0, 0), (2, 1, 1), True), (5, 1, 0, 1, False),
+], ids=["srd", "strided_dilated_bias", "unpadded"])
+def test_focus_axis_conv_keeps_ndhwc(rng, kd, stride, padding, dilation, bias):
+    """A ``(kd, 1, 1)`` kernel on an NDHWC input (run as a 2-D conv over its
+    channels-last view) equals the NCDHW conv and returns NDHWC."""
+    x = torch.from_numpy(rng.standard_normal((2, 8, 7, 6, 10), dtype=np.float32))
+    w = torch.from_numpy(rng.standard_normal((4, 8, kd, 1, 1), dtype=np.float32))
+    b = torch.from_numpy(rng.standard_normal(4, dtype=np.float32)) if bias else None
+    kw = dict(bias=b, stride=stride, padding=padding, dilation=dilation)
+    want = tops.conv3d(x, w, **kw)
+    got = tops.conv3d(x.contiguous(memory_format=torch.channels_last_3d), w, **kw)
+    assert is_ndhwc(got)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("k,padding,bias", [(1, 0, False), (1, 0, True), (3, 1, False),
+                                            (3, 1, True)],
+                         ids=["pointwise", "pointwise_bias", "k3", "k3_bias"])
+def test_one_channel_conv_on_ndhwc_matches_conv3d(rng, k, padding, bias):
+    """A conv to one channel on an NDHWC input (a product over channels, or
+    the weight padded to eight output channels) equals the NCDHW conv."""
+    x = torch.from_numpy(rng.standard_normal((2, 8, 5, 6, 10), dtype=np.float32))
+    w = torch.from_numpy(rng.standard_normal((1, 8, k, k, k), dtype=np.float32))
+    b = torch.from_numpy(rng.standard_normal(1, dtype=np.float32)) if bias else None
+    want = tops.conv3d(x, w, bias=b, padding=padding)
+    got = tops.conv3d(x.contiguous(memory_format=torch.channels_last_3d), w, bias=b,
+                      padding=padding)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,training,want", [
+    (torch.bfloat16, False, torch.channels_last_3d),
+    (torch.float16, False, torch.channels_last_3d),
+    (torch.float32, False, torch.contiguous_format),
+    (torch.bfloat16, True, torch.contiguous_format),
+    (torch.float32, True, torch.contiguous_format),
+], ids=["bf16_eval", "fp16_eval", "fp32_eval", "bf16_train", "fp32_train"])
+def test_activation_format(dtype, training, want):
+    assert activation_format(torch.zeros((1, 8, 2, 4, 4), dtype=dtype), training) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("fmt", [torch.channels_last_3d, torch.contiguous_format],
+                         ids=["ndhwc", "ncdhw"])
+def test_convs_keep_and_count_their_input_layout(rng, dtype, fmt):
+    """A 16-bit input counts ``stock.conv_ndhwc`` or ``stock.conv_ncdhw`` once
+    a call and comes out of the conv and the deconv in its own layout; fp32
+    counts neither (the CPU's fp32 convs choose their output layout by
+    shape)."""
+    from dffx_torch.utils import profiling
+
+    x = torch.from_numpy(rng.standard_normal((1, 8, 3, 6, 10), dtype=np.float32))
+    x = x.to(dtype).contiguous(memory_format=fmt)
+    w = torch.from_numpy(rng.standard_normal((4, 8, 3, 3, 3), dtype=np.float32))
+    wd = torch.from_numpy(rng.standard_normal((8, 4, 3, 3, 3), dtype=np.float32))
+    profiling.reset()
+    try:
+        with profiling.collect():
+            outs = tops.conv3d(x, w, padding=1), tops.deconv3d(x, wd)
+        counted = profiling.counters()
+    finally:
+        profiling.reset()
+    if dtype == torch.float32:
+        assert counted == {}
+        return
+    ndhwc = fmt == torch.channels_last_3d
+    assert counted == {"stock.conv_ndhwc" if ndhwc else "stock.conv_ncdhw": 2}
+    assert all(is_ndhwc(o) == ndhwc for o in outs)
 
 
 @pytest.mark.parametrize("hw_in,hw_out", [((8, 12), (64, 96)), ((16, 16), (128, 128)),

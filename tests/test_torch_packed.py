@@ -26,6 +26,7 @@ from dffx_torch.eval import load_params_auto
 from dffx_torch.models import E2ENetwork, Network
 from dffx_torch.models import packed as tp
 from dffx_torch.ops import conv3d, deconv3d
+from dffx_torch.ops.conv import layout_of
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", "forward_v1.npz")
 HEADS = ["mid", "pred1", "pred2", "pred3"]
@@ -418,3 +419,84 @@ def test_packed_default_is_one_constant():
     for flag in (False, True):
         assert load_params_auto(0, device="cpu", packed=flag).DFF_net.packed is flag
         assert E2ENetwork(packed=flag).DFF_net.packed is flag
+
+
+# ---------------------------------------------------------------------------
+# the NDHWC layout of 16-bit eval activations (ops/conv.py::activation_format)
+# ---------------------------------------------------------------------------
+
+LAYOUTS = [torch.contiguous_format, torch.channels_last_3d]
+
+
+@pytest.mark.parametrize("fmt", LAYOUTS, ids=["ncdhw", "ndhwc"])
+def test_pack_and_unpack_keep_the_layout(rng, fmt):
+    """The same values bit for bit from either layout, returned in the layout
+    given; ``pack`` writes the one it is asked for."""
+    x = torch.from_numpy(rng.standard_normal((2, 5, 3, 8, 12)).astype(np.float32))
+    xf = x.contiguous(memory_format=fmt)
+    xp = tp.pack(xf)
+    assert layout_of(xp) == fmt and torch.equal(xp, tp.pack(x))
+    back = tp.unpack(xp)
+    assert layout_of(back) == fmt and torch.equal(back, x)
+    for out in LAYOUTS:
+        asked = tp.pack(xf, out)
+        assert layout_of(asked) == out and torch.equal(asked, xp)
+
+
+@pytest.mark.parametrize("fmt", LAYOUTS, ids=["ncdhw", "ndhwc"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_packed_efd_keeps_the_layout(params, rng, fmt, dtype):
+    """The same values bit for bit from either layout; the strided weight
+    and, in bf16, the output in the layout given (the CPU's fp32 convs
+    choose their output layout by shape)."""
+    efd = load_jax_params(Network(), params).eval().DFF_net.FM_conv1[0]
+    x = torch.from_numpy(rng.uniform(-1, 1, (1, 8, 3, 32, 48)).astype(np.float32)).to(dtype)
+    w = efd.stride_conv[0].weight
+    with torch.no_grad():
+        xp, ref_xp = tp.pack(x, fmt), tp.pack(x)
+        w_s2 = tp.efd_params(xp, w)
+        got = tp.packed_efd(efd, xp, w_s2)
+        ref = tp.packed_efd(efd, ref_xp, tp.efd_params(ref_xp, w))
+    assert layout_of(w_s2) == fmt and torch.equal(got, ref)
+    assert dtype == torch.float32 or layout_of(got) == fmt
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "unpacked"])
+def test_ndhwc_forward_matches_ncdhw(params, rng, packed, monkeypatch):
+    """An fp32 eval forward with the layout policy forced to NDHWC against
+    the NCDHW one: every head within 1e-5 (the CPU has no bf16
+    ``avg_pool3d`` to run a 16-bit forward NCDHW)."""
+    from dffx_torch.models import dffnet
+
+    fs = torch.from_numpy(rng.uniform(-1, 1, (1, 4, 64, 96, 3)).astype(np.float32))
+    fd = torch.from_numpy(np.linspace(0.1, 1.5, 4, dtype=np.float32)[None])
+    net = load_jax_params(Network(packed=packed), params).eval()
+    with torch.no_grad():
+        ref = net(fs, fd)
+        monkeypatch.setattr(dffnet, "activation_format",
+                            lambda x, training: torch.channels_last_3d)
+        got = net(fs, fd)
+    for g, r, name in zip(got, ref, HEADS):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("e2e", [False, True], ids=["dffnet", "e2e"])
+def test_bf16_eval_forward_counts_its_stock_convs_by_layout(e2e):
+    """A bf16 eval forward: DFFNet's 65 stock convs and deconvs (the FM
+    chain's five are kernels on the card) run on NDHWC inputs; FlowNetwork's
+    14 stay NCDHW."""
+    from dffx_torch.utils import profiling
+
+    n = 10 if e2e else 4
+    net = load_params_auto(0, device="cpu", e2e=e2e)
+    fs = torch.linspace(-1, 1, n * 64 * 96 * 3).reshape(1, n, 64, 96, 3).bfloat16()
+    fd = torch.linspace(0.1, 1.5, n)[None]
+    extra = (torch.linspace(1.0, 1.05, n)[None],) if e2e else ()
+    profiling.reset()
+    try:
+        with torch.no_grad(), profiling.collect():
+            net(fs, fd, *extra)
+        counted = profiling.counters()
+    finally:
+        profiling.reset()
+    assert counted == {"stock.conv_ndhwc": 65, **({"stock.conv_ncdhw": 14} if e2e else {})}
