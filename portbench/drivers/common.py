@@ -1,6 +1,7 @@
 """What the traffic drivers share: the program's network built on the
 benchmark's weights, a seeded sample of the window's answers, and the
-comparison of served outputs with the plain reference."""
+comparison of served outputs with the plain reference.  The network is the
+module of ``portbench/networks`` that the configuration names."""
 
 from __future__ import annotations
 
@@ -9,29 +10,27 @@ from typing import Dict, List, Sequence
 
 import torch
 
+from portbench import networks
 from portbench.core import Run, rel_gap
-from portbench.reference import lowp, nets, weights
+from portbench.reference import lowp, weights
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-SERVED = {"dffnet": ("mid", "pred1", "pred2", "pred3"),
-          "e2e": ("mid", "pred1", "pred2", "pred3", "warped")}
+
+
+def network(r: Run):
+    """The module of the cell's network (``portbench/networks``)."""
+    return networks.load(r.cell.config["network"])
 
 
 def draw_weights(r: Run) -> Dict[str, torch.Tensor]:
     """The benchmark's weights for the cell's network, on the run's device."""
-    network = r.cell.config["network"]
-    return weights.draw(nets.specs(network), r.seed, r.device)
+    return weights.draw(network(r).specs(), r.seed, r.device)
 
 
 def program_network(config: dict, params: Dict[str, torch.Tensor], device):
-    """The program's ``Network`` or ``E2ENetwork`` (graph as the configuration
-    says) with the benchmark's weights, on ``device``, in eval mode."""
-    from dffx_torch.models import E2ENetwork, Network
-
-    cls = E2ENetwork if config["network"] == "e2e" else Network
-    net = cls(bool(config["packed"])).to(device)
-    net.load_state_dict(params)
-    return net.eval()
+    """The program's module of the configuration's network with the
+    benchmark's weights, on ``device``, in eval mode."""
+    return networks.load(config["network"]).program(config, params, device)
 
 
 def program_device(r: Run) -> None:
@@ -76,17 +75,17 @@ def serving_checks(r: Run, rows: List[tuple]) -> None:
 (``lowp.control``) is read the same way."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    network = r.cell.config["network"]
+    net = network(r)
     params = draw_weights(r)
     with torch.inference_mode():
         for inputs, outputs in rows:
             inputs = [t.float() for t in inputs]
-            want = nets.forward(network, params, inputs)
-            _worst(r.checks, network, outputs, want)
+            want = net.reference(params, inputs)
+            _worst(r.checks, net.SERVED, outputs, want)
             if r.control:
                 with lowp.control(r.cell.traffic["dtype"]):
-                    low = nets.forward(network, params, inputs)
-                _worst(r.control_checks, network, low, want)
+                    low = net.reference(params, inputs)
+                _worst(r.control_checks, net.SERVED, low, want)
 
 
 def rms_gap(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -95,7 +94,7 @@ def rms_gap(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).square().mean().sqrt() / want.square().mean().sqrt().clamp(min=1e-30))
 
 
-def _worst(into: Dict[str, float], network: str, got, want) -> None:
-    for name, g, w in zip(SERVED[network], got, want):
+def _worst(into: Dict[str, float], served: Sequence[str], got, want) -> None:
+    for name, g, w in zip(served, got, want):
         for key, value in ((f"{name}_max", rel_gap(g, w)), (f"{name}_rms", rms_gap(g, w))):
             into[key] = max(into.get(key, 0.0), value)

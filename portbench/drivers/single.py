@@ -1,8 +1,8 @@
 """One hand-held scene at a time: one client in a closed loop hands the
 program's serving entry (``TimedForward``) a float32 stack from host memory,
-with its focus distances and fields of view, and copies the depth map
-(pred3) back to the host.  The stacks come from a pool of distinct ones made
-from the seed.
+with the rest of its inputs, and copies the depth map (the network's output
+``DEPTH``, E2E's pred3) back to the host.  The stacks come from a pool of
+distinct ones made from the seed.
 
 Traffic keys: ``batch`` (1), ``dtype``, ``pool``, ``sample_calls`` (the
 window's answers held to the reference, drawn from the seed),
@@ -32,6 +32,7 @@ def run(r: Run) -> None:
     cfg, tr = r.cell.config, r.cell.traffic
     b, dtype = int(tr["batch"]), common.DTYPES[tr["dtype"]]
     common.program_device(r)
+    depth = common.network(r).DEPTH
     net = common.program_network(cfg, common.draw_weights(r), r.device)
     serve = TimedForward(net, dtype=dtype)
     r.mark("weights and model")
@@ -41,7 +42,7 @@ def run(r: Run) -> None:
 
     def request(inputs):
         outs = serve(*inputs)
-        return outs, outs[3].cpu()
+        return outs, outs[depth].cpu()
 
     r.mark("inputs")
     for inputs in pool[:2]:

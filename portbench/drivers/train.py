@@ -1,7 +1,9 @@
 """Training steps: the program's train step (``make_train_step``, the DDFF
 loss, Adam) fed through its ``device_prefetch`` from pinned host batches
 made from the seed, on one process or, with ``world`` > 1, as one rank of a
-data-parallel group (``train_dp``).
+data-parallel group (``train_dp``).  The network module
+(``portbench/networks``) gives the step's arguments, the batch's keys
+beyond the DDFF batch, the heads compared and the reference's loss.
 
 Set-up builds the step with its model and optimizer state and drives it
 through its first ``FOLLOWED`` steps on distinct batches through the
@@ -21,7 +23,7 @@ from __future__ import annotations
 import contextlib
 import statistics
 import time
-from typing import Dict
+from typing import Dict, Sequence
 
 import torch
 
@@ -33,7 +35,6 @@ from portbench.reference import lowp
 from portbench.reference import train as rtrain
 
 FOLLOWED = 3  # steps the reference follows
-KEYS = ("fs", "depth", "focus_dists", "mask")
 #: a leaf whose reference gradient is under this share of the median leaf's
 #: moves by round-off alone under Adam and is left out of the comparison
 NOUGHT = 1e-3
@@ -42,11 +43,11 @@ NOUGHT = 1e-3
 def run(r: Run) -> None:
     from dffx_torch.data.pipeline import device_prefetch
     from dffx_torch.parallel import distributed, make_mesh
-    from dffx_torch.train import LossConfig, create_train_state, make_train_step
+    from dffx_torch.train import create_train_state, make_train_step
     from dffx_torch.train.cli import CUDNN_BENCHMARK
 
     cfg, tr = r.cell.config, r.cell.traffic
-    network = cfg["network"]
+    network = common.network(r)
     b, lr, dtype = int(tr["batch"]), float(tr["lr"]), common.DTYPES[tr["dtype"]]
     if b % r.world:
         raise ValueError(f"a global batch of {b} does not split over {r.world} ranks")
@@ -65,8 +66,7 @@ def run(r: Run) -> None:
     r.mark("weights")
     net = common.program_network(cfg, start, r.device)
     state = create_train_state(net, lr)
-    step = make_train_step(lr, LossConfig(), e2e=network == "e2e", compute_dtype=dtype,
-                           mesh=mesh)
+    step = make_train_step(lr, compute_dtype=dtype, mesh=mesh, **network.train_step_args())
     r.mark("model and optimizer")
     batches = train_batches(cfg, b, int(tr["pool"]), r.device, r.generator("inputs"))
     r.mark("host batches")
@@ -79,8 +79,8 @@ def run(r: Run) -> None:
             yield mine[i % len(mine)]
             i += 1
 
-    feed = device_prefetch(cycle(), r.device, KEYS)
-    first = followed_steps(state, step, feed)
+    feed = device_prefetch(cycle(), r.device, tuple(batches[0]))
+    first = followed_steps(state, step, feed, len(network.TRAIN_HEADS))
     r.mark("followed steps")
 
     bad = torch.zeros((), dtype=torch.int32, device=r.device)
@@ -144,17 +144,19 @@ def run(r: Run) -> None:
         train_checks(r, network, start, batches[:FOLLOWED], first, lr)
 
 
-def followed_steps(state, step, feed) -> dict:
+def followed_steps(state, step, feed, heads_count: int) -> dict:
     """The first steps through the window's call and feed, with what the
-    comparison reads from them: each step's loss, the first step's depth
-    heads as the model returned them inside the step, the first gradient as
-    Adam got it (its first moment after one step over 1 - beta1) and the
-    parameters and statistics after the last."""
+    comparison reads from them: each step's loss, the first step's first
+    ``heads_count`` outputs (the depth heads) as the model returned them
+    inside the step, the first gradient as Adam got it (its first moment
+    after one step over 1 - beta1) and the parameters and statistics after
+    the last."""
     losses = []
     grad1 = {}
     heads = []
     hook = state.model.register_forward_hook(
-        lambda module, args, outs: heads.append(tuple(o.detach().float() for o in outs[:4])))
+        lambda module, args, outs: heads.append(
+            tuple(o.detach().float() for o in outs[:heads_count])))
     for i in range(FOLLOWED):
         _, on_device = next(feed)
         state, logs = step(state, on_device)
@@ -170,10 +172,11 @@ def followed_steps(state, step, feed) -> dict:
             "heads": heads[0]}
 
 
-def reference_steps(network: str, start: Dict[str, torch.Tensor], batches, lr: float,
+def reference_steps(network, start: Dict[str, torch.Tensor], batches, lr: float,
                     device, compute=contextlib.nullcontext) -> dict:
-    """The plain reference's first steps from ``start`` on the global
-    ``batches``: the same readings as ``followed_steps``."""
+    """The plain reference's first steps of the network module ``network``
+    from ``start`` on the global ``batches``: the same readings as
+    ``followed_steps``."""
     params = {k: v.clone() for k, v in start.items()}
     opt = rtrain.Adam(lr)
     losses, grad1, heads = [], {}, ()
@@ -198,7 +201,7 @@ def worst(gaps: Dict[str, float], count: int = 3) -> str:
     return ", ".join(f"{k} {v:.4f}" for k, v in sorted(gaps.items(), key=lambda kv: -kv[1])[:count])
 
 
-def train_checks(r: Run, network: str, start, batches, program: dict, lr: float) -> None:
+def train_checks(r: Run, network, start, batches, program: dict, lr: float) -> None:
     """Hold the followed steps to the reference's (``readings``); with
     ``r.control`` the reference one precision below the cell's
     (``lowp.control``) is read the same way."""
@@ -206,20 +209,21 @@ def train_checks(r: Run, network: str, start, batches, program: dict, lr: float)
     torch.backends.cuda.matmul.allow_tf32 = False
     want = reference_steps(network, start, batches, lr, r.device)
     rows = slice(r.rank * len(program["heads"][0]), (r.rank + 1) * len(program["heads"][0]))
-    r.checks.update(readings(start, program, want, r.leaves, rows))
+    r.checks.update(readings(start, program, want, r.leaves, rows, network.TRAIN_HEADS))
     if r.control:
         low = reference_steps(network, start, batches, lr, r.device,
                               lambda: lowp.control(r.cell.traffic["dtype"]))
         low["heads"] = tuple(h[rows] for h in low["heads"])  # this rank's, as the program's
         leaves = {}
-        r.control_checks.update(readings(start, low, want, leaves, rows))
+        r.control_checks.update(readings(start, low, want, leaves, rows, network.TRAIN_HEADS))
         r.leaves.update({f"control_{k}": v for k, v in leaves.items()})
 
 
-def readings(start, got: dict, want: dict, leaves: Dict[str, str], rows: slice
-             ) -> Dict[str, float]:
-    """``<head>_rms``: each depth head of the first step's forward against
-    the reference's on this rank's ``rows``, as ``common.rms_gap``;
+def readings(start, got: dict, want: dict, leaves: Dict[str, str], rows: slice,
+             heads: Sequence[str]) -> Dict[str, float]:
+    """``<head>_rms``: each depth head (named by ``heads``) of the first
+    step's forward against the reference's on this rank's ``rows``, as
+    ``common.rms_gap``;
     ``loss``: the largest gap of a followed step's loss over the
     reference's (``loss1``..``loss3`` each step's); ``grad1`` and
     ``change``: the worst leaf's gap
@@ -236,10 +240,10 @@ def readings(start, got: dict, want: dict, leaves: Dict[str, str], rows: slice
                        {k: want["after"][k] - start[k] for k in kept})
     leaves["grad1"], leaves["change"] = worst(grad1), worst(change)
     losses = [abs(g - w) / abs(w) for g, w in zip(got["losses"], want["losses"])]
-    heads = {}
-    for name, g, w in zip(common.SERVED["dffnet"], got["heads"], want["heads"]):
+    gaps = {}
+    for name, g, w in zip(heads, got["heads"], want["heads"]):
         w = w[rows]
-        heads[f"{name}_rms"] = common.rms_gap(g, w) if g.shape == w.shape else float("inf")
-    return {**heads, "loss": max(losses), **{f"loss{i + 1}": v for i, v in enumerate(losses)},
+        gaps[f"{name}_rms"] = common.rms_gap(g, w) if g.shape == w.shape else float("inf")
+    return {**gaps, "loss": max(losses), **{f"loss{i + 1}": v for i, v in enumerate(losses)},
             "grad1": max(grad1.values()), "change": max(change.values()),
             "grad1_median": statistics.median(grad1.values())}

@@ -1,11 +1,12 @@
 """Faults planted under the timed path, to show that the comparison catches
 them: the CPU tests plant each fault a cell can have and see ``correct``
 come out false; ``calibrate.py`` reads them on the card at the cell's own
-size.  ``plant(name)`` patches the program in this process and returns the
-function that takes the patch out.
+size.  ``plant(name, ...)`` patches the program in this process and returns
+the function that takes the patch out.
 
-* ``answer``: each forward's depth map (pred3) altered where it is produced:
-  moved by a twentieth of the focus range;
+* ``answer``: each forward's depth map (the network's output ``DEPTH``,
+  pred3 of DFFNet and E2E) altered where it is produced: moved by a
+  twentieth of the focus range;
 * ``half``: half of the batch left out: a forward computes the first half
   and repeats it; a train step runs on the first half's rows alone, its
   loss the mean over them;
@@ -24,7 +25,7 @@ import torch
 FAULTS = ("answer", "half", "unchanged", "exchange")
 
 
-def _serving(fault: str) -> Callable[[], None]:
+def _serving(fault: str, depth: int) -> Callable[[], None]:
     from dffx_torch.eval.common import TimedForward
 
     real = TimedForward.__call__
@@ -36,7 +37,7 @@ def _serving(fault: str) -> Callable[[], None]:
             return tuple(torch.cat([o, o[: len(fs) - h]]) for o in outs)
         outs = list(real(self, fs, focus_dists, *extra))
         fd = torch.as_tensor(focus_dists)
-        outs[3] = outs[3] + ((fd.max() - fd.min()) / 20).to(outs[3])
+        outs[depth] = outs[depth] + ((fd.max() - fd.min()) / 20).to(outs[depth])
         return tuple(outs)
 
     TimedForward.__call__ = broken
@@ -86,10 +87,11 @@ def _exchange() -> Callable[[], None]:
     return undo
 
 
-def plant(name: str, training: bool) -> Callable[[], None]:
-    """Patch fault ``name`` into the program's serving entry or train step."""
+def plant(name: str, training: bool, depth: int) -> Callable[[], None]:
+    """Patch fault ``name`` into the program's serving entry or train step;
+    ``depth``: the index of the depth map among a forward's outputs."""
     if name not in FAULTS:
         raise ValueError(f"no fault {name!r}; the faults are {FAULTS}")
     if name == "exchange":
         return _exchange()
-    return _train(name) if training else _serving(name)
+    return _train(name) if training else _serving(name, depth)

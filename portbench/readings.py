@@ -44,13 +44,20 @@ def _seconds(r: Run, which) -> float:
     return sum(dur for name, _, dur in r.slice.kernels if which(name)) / 1e6
 
 
+def _port_kernel(r: Run):
+    """Whether a device kernel's name is one of the program's own hand
+    kernels, by the cell's network (``yardstick.port_kernels``)."""
+    kernels = yardstick.port_kernels(r.cell.config["network"])
+    return lambda name: yardstick.is_port_kernel(name, kernels)
+
+
 def kernels_roofline_pct(r: Run) -> Optional[float]:
-    """The five kernels' least time (``yardstick.forward_bound_s``) over the
+    """The hand kernels' least time (``yardstick.forward_bound_s``) over the
     slice's forwards, over their device time in the slice."""
     s = _device_slice(r)
     if s is None:
         return None
-    spent = _seconds(r, yardstick.is_port_kernel)
+    spent = _seconds(r, _port_kernel(r))
     if spent <= 0:
         return None
     cfg, tr = r.cell.config, r.cell.traffic
@@ -65,7 +72,8 @@ def stock_ops_ms(r: Run) -> Optional[float]:
     s = _device_slice(r)
     if s is None:
         return None
-    spent = _seconds(r, lambda n: not (yardstick.is_port_kernel(n) or yardstick.is_nccl_kernel(n)))
+    own = _port_kernel(r)
+    spent = _seconds(r, lambda n: not (own(n) or yardstick.is_nccl_kernel(n)))
     per = s.calls if _training(r) else s.items
     return spent / per * 1e3
 

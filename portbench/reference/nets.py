@@ -15,7 +15,9 @@ zero padding) over each slice's scaled and shifted grid, as the published
 code computes it, not the program's separable matrix products.
 
 ``Ref(params, train=...)``; with ``params=None`` the forward reads zeros and
-records each key's shape and how it is drawn (``specs``).
+records each key's shape and how it is drawn (``record_specs``).  The
+network modules ``portbench/networks/dffnet.py`` and ``e2e.py`` point at
+these forwards.
 """
 
 from __future__ import annotations
@@ -315,22 +317,15 @@ def e2e(r: Ref, fs, focus_dists, fovs) -> Tuple[torch.Tensor, ...]:
     return (*dffnet(r, warped, focus_dists), warped)
 
 
-NETWORKS = {"dffnet": dffnet, "e2e": e2e}
+#: the stack (N, H, W) whose forward records a network's weights
+PROBE_STACK = (10, 32, 32)
 
 
-def forward(network: str, params, inputs, *, train: bool = False):
-    """The named network's outputs on ``inputs`` (fs, focus_dists[, fovs])."""
-    return NETWORKS[network](Ref(params, train=train), *inputs)
-
-
-def specs(network: str) -> Dict[str, tuple]:
-    """Every state-dict key of the named network with its shape and how it is
-    drawn, recorded from a forward on a small stack of zeros on the CPU."""
-    n, h, w = 10, 32, 32
+def record_specs(forward, inputs) -> Dict[str, tuple]:
+    """Every state-dict key that ``forward`` (``dffnet`` or ``e2e``) reads,
+    with its shape and how it is drawn, recorded from a forward on
+    ``inputs`` with no weights."""
     r = Ref(None)
-    inputs = [torch.zeros((1, n, h, w, 3)), torch.ones((1, n))]
-    if network == "e2e":
-        inputs.append(torch.ones((1, n)))
     with torch.no_grad():
-        NETWORKS[network](r, *inputs)
+        forward(r, *inputs)
     return dict(sorted(r.specs.items()))

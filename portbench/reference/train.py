@@ -1,9 +1,10 @@
-"""The plain reference of one DDFF train step, in fp32: the network in
-training mode (BatchNorm on batch statistics, running statistics updated at
-momentum 0.1 with the unbiased variance), the masked MSE of the four depth
-heads weighted 0.3 / 0.5 / 0.7 / 1.0 (`train_code_DDFF.py:143-168`), the
-backward, and Adam (betas 0.9 and 0.99, eps 1e-8) over every weight and bias,
-written out here.
+"""The plain reference of one train step, in fp32: the network's reference
+forward in training mode (BatchNorm on batch statistics, running statistics
+updated at momentum 0.1 with the unbiased variance), its loss, the backward,
+and Adam (betas 0.9 and 0.99, eps 1e-8) over every weight and bias, written
+out here.  The DDFF loss (``loss``), the masked MSE of the four depth heads
+weighted 0.3 / 0.5 / 0.7 / 1.0 (`train_code_DDFF.py:143-168`), is the one
+DFFNet and E2E train with.
 """
 
 from __future__ import annotations
@@ -12,8 +13,6 @@ import contextlib
 from typing import Dict, Tuple
 
 import torch
-
-from portbench.reference import nets
 
 LOSS_WEIGHTS = (0.3, 0.5, 0.7, 1.0)  # mid_out, pred1, pred2, pred3
 BETAS = (0.9, 0.99)
@@ -56,24 +55,26 @@ class Adam:
             params[k].sub_(self.lr * (m / c1) / ((v / c2).sqrt() + ADAM_EPS))
 
 
-def step(network: str, params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
+def step(net, params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
          opt: Adam, compute=contextlib.nullcontext) -> Tuple[float, Dict[str, torch.Tensor],
                                                             Tuple[torch.Tensor, ...]]:
-    """One step on ``batch`` (fs, depth, focus_dists, mask[, fovs]), updating
-    ``params`` in place.  Returns (loss, the gradients Adam got, the four
-    depth heads of the forward).  The forward and the backward run under
-    ``compute()`` (the control's ``lowp.fp8``); Adam runs outside it."""
+    """One step of the network module ``net`` (``portbench/networks``) on
+    ``batch`` (its ``INPUT_KEYS`` and what its loss reads), updating
+    ``params`` in place.  Returns (loss, the gradients Adam got, the heads
+    ``net.TRAIN_HEADS`` of the forward).  The forward and the backward run
+    under ``compute()`` (the control's ``lowp.fp8``); Adam runs outside it."""
     keys = [k for k in params if trainable(k)]
     for k in keys:
         params[k].requires_grad_(True)
-    inputs = [batch["fs"], batch["focus_dists"]] + ([batch["fovs"]] if network == "e2e" else [])
+    inputs = [batch[k] for k in net.INPUT_KEYS]
     with compute():
-        outs = nets.forward(network, params, inputs, train=True)
-        total = loss(outs, batch)
+        outs = net.reference(params, inputs, train=True)
+        total = net.reference_loss(outs, batch)
         grads = dict(zip(keys, torch.autograd.grad(total, [params[k] for k in keys],
                                                    allow_unused=True)))
     grads = {k: torch.zeros_like(params[k]) if g is None else g for k, g in grads.items()}
     for k in keys:
         params[k].requires_grad_(False)
     opt.step(params, grads)
-    return float(total.detach()), grads, tuple(o.detach() for o in outs[:4])
+    heads = outs[:len(net.TRAIN_HEADS)]
+    return float(total.detach()), grads, tuple(o.detach() for o in heads)

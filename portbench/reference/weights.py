@@ -33,8 +33,9 @@ def generator(seed: int, stream: str, device) -> torch.Generator:
 
 
 def draw(specs: Dict[str, tuple], seed: int, device) -> Dict[str, torch.Tensor]:
-    """fp32 tensors for every key of ``specs`` (``nets.specs``); counts are
-    int64 zeros.  One normal and one uniform draw cover every tensor."""
+    """fp32 tensors for every key of ``specs`` (a network module's
+    ``specs()``, ``portbench/networks``); counts are int64 zeros.  One
+    normal and one uniform draw cover every tensor."""
     gen = generator(seed, "weights", device)
     normal = [k for k, (_, kind) in specs.items() if kind[0] == "msra"]
     uniform = [k for k, (_, kind) in specs.items() if kind[0] not in ("msra", "count")]

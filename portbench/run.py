@@ -71,13 +71,16 @@ def execute(workload: str, seed: int, seconds: float, trace: bool, *, device: st
     """Run the cell; returns the ``Run`` (rank 0 holds the result's numbers).
     ``control``: also read the control; ``fault``: plant a fault of
     ``faults.py`` under the timed path for this run."""
-    from portbench import core, faults
+    from portbench import core, faults, networks
 
     cell = core.load_cell(workload, overrides)
     r = core.Run(cell, seed, seconds, trace, device, rank=rank, world=world,
                  coordinator=coordinator, started=started)
     r.overrides, r.control, r.fault = overrides, control, fault
-    undo = faults.plant(fault, cell.traffic["driver"].startswith("train")) if fault else None
+    undo = None
+    if fault:
+        undo = faults.plant(fault, cell.traffic["driver"].startswith("train"),
+                            networks.load(cell.config["network"]).DEPTH)
     try:
         core.driver(cell).run(r)
     finally:

@@ -1,13 +1,14 @@
-"""The benchmark's files: every configuration, traffic mix, driver, limit and
-per-layer metric of ``BENCHMARK.json`` is found by name and parses, every
-metric's ``moves`` is reported by each of its cells, the file keeps the
-contract's shapes, and a new cell can be added as new files and entries
-alone."""
+"""The benchmark's files: every configuration, network, traffic mix, driver,
+limit and per-layer metric of ``BENCHMARK.json`` is found by name and
+parses, every metric's ``moves`` is reported by each of its cells, the file
+keeps the contract's shapes, and a new cell, or a new network with its
+cell, can be added as new files and entries alone."""
 
 from __future__ import annotations
 
 import importlib
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -15,7 +16,7 @@ import sys
 
 import pytest
 
-from portbench import core
+from portbench import core, networks
 
 BENCH = json.loads(core.BENCHMARK.read_text())
 CELLS = [w["name"] for w in BENCH["workloads"]]
@@ -54,7 +55,7 @@ def test_names_units_and_lines():
 @pytest.mark.parametrize("cell", CELLS)
 def test_cell_files_parse(cell):
     c = core.load_cell(cell)
-    assert c.config["network"] in ("dffnet", "e2e")
+    assert networks.load(c.config["network"]).SERVED
     assert importlib.import_module(f"portbench.drivers.{c.traffic['driver']}").run
     assert c.limits, f"limits/{cell}.json"
     for m in c.per_layer:
@@ -125,6 +126,146 @@ def test_a_cell_is_added_by_new_files_alone(tmp_path):
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
     after = {p: p.read_bytes() for p in before}
     assert after == before
+
+
+TOY_NETWORK = '''"""A toy depth-from-focus network: a 3-D conv, BatchNorm and ReLU, a
+1x1x1 conv to one channel, and a softmax over the focus axis."""
+
+import torch
+from torch import nn
+
+from portbench.inputs import focus_dists, uniform
+from portbench.reference import toy
+
+SERVED = ("depth",)
+DEPTH = 0
+WORK = {}
+KERNELS = ()
+specs = toy.specs
+reference = toy.forward
+
+
+class Toy(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.conv = nn.Conv3d(3, 4, 3, padding=1, bias=False)
+        self.bn = nn.BatchNorm3d(4)
+        self.head = nn.Conv3d(4, 1, 1)
+
+    def forward(self, fs, focus_dists):
+        x = torch.relu(self.bn(self.conv(fs.permute(0, 4, 1, 2, 3))))
+        p = torch.softmax(self.head(x)[:, 0], dim=1)
+        return ((p * focus_dists[:, :, None, None]).sum(dim=1),)
+
+
+def probe_inputs(stack, device):
+    n, h, w = stack
+    return [torch.zeros((1, n, h, w, 3), device=device), torch.ones((1, n), device=device)]
+
+
+def program(config, params, device):
+    net = Toy().to(device)
+    net.load_state_dict(params)
+    return net.eval()
+
+
+def serving_inputs(config, b, dtype, dev, gen):
+    n, h, w = config["stack"]
+    return [uniform((b, n, h, w, 3), dtype, dev, gen), focus_dists(b, n, dev, *config["focus"])]
+
+
+def launches(b, stack):
+    return []
+'''
+
+TOY_REFERENCE = '''"""The toy network's plain reference."""
+
+import torch
+import torch.nn.functional as F
+
+
+def specs():
+    return {"bn.bias": ((4,), ("bn_bias",)), "bn.num_batches_tracked": ((), ("count",)),
+            "bn.running_mean": ((4,), ("bn_mean",)), "bn.running_var": ((4,), ("bn_var",)),
+            "bn.weight": ((4,), ("bn_weight",)), "conv.weight": ((4, 3, 3, 3, 3), ("default", 81)),
+            "head.bias": ((1,), ("bias", 4)), "head.weight": ((1, 4, 1, 1, 1), ("default", 4))}
+
+
+def forward(params, inputs, *, train=False):
+    fs, fd = inputs
+    p = params
+    x = F.conv3d(fs.permute(0, 4, 1, 2, 3), p["conv.weight"], padding=1)
+    x = torch.relu(F.batch_norm(x, p["bn.running_mean"], p["bn.running_var"], p["bn.weight"],
+                                p["bn.bias"], training=train, eps=1e-5))
+    prob = torch.softmax(F.conv3d(x, p["head.weight"], p["head.bias"])[:, 0], dim=1)
+    return ((prob * fd[:, :, None, None]).sum(dim=1),)
+'''
+
+
+def test_a_network_is_added_by_new_files_alone(tmp_path):
+    """A network of its own (a module under ``networks/``, its reference
+    under ``reference/``) with a configuration, limits, a per-layer metric
+    and a cell on the existing ``batch`` driver, added in a copy as new files
+    and new entries of BENCHMARK.json: the copy's harness runs the cell on
+    the CPU and reads it correct, a planted fault reads not correct, and no
+    existing file changed."""
+    root = tmp_path / "checkout"
+    pkg = root / "portbench"
+    shutil.copytree(core.PACKAGE, pkg, ignore=shutil.ignore_patterns("__pycache__"))
+    before = {p: p.read_bytes() for p in pkg.rglob("*") if p.is_file()}
+    (pkg / "networks" / "toy.py").write_text(TOY_NETWORK)
+    (pkg / "reference" / "toy.py").write_text(TOY_REFERENCE)
+    (pkg / "configs" / "toy.json").write_text(json.dumps(
+        {"name": "toy", "network": "toy", "stack": [4, 16, 16], "focus": [0.5, 2.0]}))
+    (pkg / "traffic" / "batch-b2-fp32.json").write_text(json.dumps(
+        {"driver": "batch", "batch": 2, "dtype": "float32", "pool": 2, "sample_calls": 2,
+         "sample_rows": 2, "trace_calls": 2}))
+    (pkg / "metrics" / "toy_forwards.serve.py").write_text(
+        "def read(r):\n    return None if r.slice is None else float(r.slice.calls)\n")
+    (pkg / "limits" / "toy.batch-b2-fp32.json").write_text(
+        json.dumps({"limits": {"depth_rms": 1e-4}}))
+    bench = json.loads(core.BENCHMARK.read_text())
+    cell = "toy.batch-b2-fp32"
+    bench["configs"].append({"name": "toy", "source": "https://example.org/toy",
+                             "file": "portbench/configs/toy.json", "reduced": [],
+                             "why": "a toy"})
+    bench["workloads"].append({"name": cell, "config": "toy", "traffic": "batch-b2-fp32",
+                               "chips": 1, "why": "a toy"})
+    bench["per_layer"].append({"name": "toy_forwards.serve", "unit": "calls", "better": "higher",
+                               "source": "program_counter", "layer": "models",
+                               "moves": "serve_stacks_per_s", "workloads": [cell]})
+    next(m for m in bench["end_to_end"] if m["name"] == "serve_stacks_per_s")["workloads"].append(
+        cell)
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    env = {**os.environ, "PYTHONPATH": str(core.ROOT), "OMP_NUM_THREADS": "1"}
+    # the conv's and the head's FLOPs: 2 x pixels x (4 x 81 + 4)
+    code = ("from portbench import networks, yardstick\n"
+            "assert yardstick.forward_bound_s('toy', 2, (4, 16, 16), False) == 0\n"
+            "assert yardstick.port_kernels('toy') == yardstick.PORT_KERNELS\n"
+            "assert yardstick.conv_flops_per_stack('toy', (4, 16, 16)) == 2 * 1024 * 328\n"
+            "try:\n    networks.load('nothing')\nexcept KeyError as e:\n    print(e)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
+                         timeout=120, env=env)
+    assert out.returncode == 0 and "'toy'" in out.stdout, out.stderr[-3000:]
+    for fault, trace in ((None, 1), ("answer", 0)):
+        argv = [sys.executable, "-m", "portbench.run", "--workload", cell, "--seed",
+                str(2**31 + 7), "--seconds", "0.3", "--trace", str(trace), "--device", "cpu"]
+        out = subprocess.run(argv + (["--fault", fault] if fault else []), cwd=root,
+                             capture_output=True, text=True, timeout=300, env=env)
+        assert out.returncode == 0, out.stderr[-3000:]
+        line = json.loads(out.stdout.strip().splitlines()[-1])
+        assert line["correct"] is (fault is None), (fault, line["checks"])
+        assert set(line["checks"]) == {"depth_rms"}
+        if trace:
+            assert line["metrics"]["toy_forwards.serve"]["value"] == 2
+    assert {p: p.read_bytes() for p in before} == before
+
+
+def test_an_unknown_network_is_refused():
+    with pytest.raises(KeyError, match="dffnet"):
+        networks.load("no_such_net")
+    with pytest.raises(KeyError):
+        networks.load("../core")
 
 
 def test_run_without_the_program_fails(tmp_path):

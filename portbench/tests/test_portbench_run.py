@@ -15,9 +15,9 @@ import sys
 import pytest
 import torch
 
-from portbench import core, faults, run
+from portbench import core, faults, networks, run
 from portbench.drivers import common
-from portbench.reference import lowp, nets, weights
+from portbench.reference import lowp, weights
 
 torch.set_num_threads(2)
 BENCH = json.loads(core.BENCHMARK.read_text())
@@ -79,21 +79,16 @@ def test_control_fails_the_limits(cell):
     reference in fp32, at a small size: at least one compared number over
     its limit.  (fp32 cells' TF32 control needs the card:
     ``test_portbench_gpu.py``.)"""
-    c = core.load_cell(cell)
-    network = c.config["network"]
-    params = weights.draw(nets.specs(network), SEED, "cpu")
-    g = torch.Generator().manual_seed(5)
-    n, h, w = SMALL["config"]["stack"]
-    x = [torch.rand((1, n, h, w, 3), generator=g) * 2 - 1,
-         torch.linspace(*c.config["focus"], n)[None]]
-    if network == "e2e":
-        x.append(torch.linspace(*c.config["fovs"], n)[None])
+    c = core.load_cell(cell, {"config": {"stack": SMALL["config"]["stack"]}})
+    net = networks.load(c.config["network"])
+    params = weights.draw(net.specs(), SEED, "cpu")
+    x = net.serving_inputs(c.config, 1, torch.float32, "cpu", torch.Generator().manual_seed(5))
     got = {}
     with torch.no_grad():
-        want = nets.forward(network, params, x)
+        want = net.reference(params, x)
         with lowp.control(c.traffic["dtype"]):
-            low = nets.forward(network, params, x)
-    common._worst(got, network, low, want)
+            low = net.reference(params, x)
+    common._worst(got, net.SERVED, low, want)
     assert any(got[k] > limit for k, limit in c.limits.items()), (got, c.limits)
 
 
@@ -191,4 +186,4 @@ def test_four_ranks_over_gloo(tmp_path, fault):
 def test_faults_are_known():
     assert set(faults.FAULTS) == {f for fs in FAULTS.values() for f in fs}
     with pytest.raises(ValueError):
-        faults.plant("nothing", False)
+        faults.plant("nothing", False, 3)

@@ -1,21 +1,23 @@
 """The benchmark's arithmetic, frozen here so that no change to the program
 moves the yardstick: the card's published peaks, the bytes and operations of
 each of the program's five kernels from its shapes (a copy of
-``chip_smoke.py``'s ``WORK`` and ``bound_ms``), the kernels a forward
-launches, the names by which the trace shows them, and the convolution FLOPs
-of a stack, counted on the plain reference.
+``chip_smoke.py``'s ``WORK`` and ``bound_ms``), the names by which the trace
+shows them, and the convolution FLOPs of a stack, counted on the plain
+reference.  The kernels a forward launches, and the work and names of any
+kernel beyond the five, come from the network's module
+(``portbench/networks``), which adds to these tables and replaces nothing.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, Tuple
 
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from portbench.reference import nets
+from portbench import networks
 
 #: one NVIDIA H100 SXM at its full power limit of 700 W (NVIDIA's data
 #: sheet, dense rates): HBM bytes/s, TF32 and bf16 tensor-core FLOP/s, and
@@ -36,8 +38,16 @@ PORT_KERNELS = ("fm_conv_bn_relu", "res_block_kernel", "srd_attention_kernel", "
 NCCL_KERNELS = ("nccl",)
 
 
-def is_port_kernel(name: str) -> bool:
-    return any(s in name for s in PORT_KERNELS)
+def port_kernels(network: str) -> Tuple[str, ...]:
+    """The name substrings of the kernels that a cell of ``network`` counts
+    as the program's own: the five kernels' and its module's ``KERNELS``.
+    Each cell counts by its own network, so that a network that joins moves
+    no reading of another's cells."""
+    return PORT_KERNELS + tuple(networks.load(network).KERNELS)
+
+
+def is_port_kernel(name: str, kernels: Tuple[str, ...]) -> bool:
+    return any(s in name for s in kernels)
 
 
 def is_nccl_kernel(name: str) -> bool:
@@ -67,13 +77,23 @@ WORK = {
 }
 
 
-def bound_s(name: str, x_shape: tuple, bf16: bool, *weights) -> float:
+def work(network: str) -> Dict:
+    """``WORK`` with the work of the kernels that ``network``'s module adds;
+    a module that names one of the five raises."""
+    added = networks.load(network).WORK
+    clash = sorted(set(added) & set(WORK))
+    if clash:
+        raise ValueError(f"network {network!r} redefines the frozen work of {clash}")
+    return {**WORK, **added}
+
+
+def bound_s(name: str, x_shape: tuple, bf16: bool, *weights, table: Dict = WORK) -> float:
     """The least time the card could take for one launch on an input of
     ``x_shape`` (B, C, N, H, W): the larger of its bytes (every input and
     output element moved once, 2 bytes in bf16 and 4 in fp32) over the HBM
     rate and its operations over the tensor cores' rate (bf16: one product a
     multiply-accumulate at the bf16 rate; fp32: three TF32 products)."""
-    flop_in, flop_mid, chans = WORK[name](x_shape[1], *weights)
+    flop_in, flop_mid, chans = table[name](x_shape[1], *weights)
     pixels = math.prod(x_shape) // x_shape[1]
     by_bytes = pixels * chans * (2 if bf16 else 4) / HBM_BYTES_PER_S
     if bf16:
@@ -83,28 +103,12 @@ def bound_s(name: str, x_shape: tuple, bf16: bool, *weights) -> float:
     return max(by_bytes, by_ops)
 
 
-def launches(network: str, b: int, stack: tuple) -> List[Tuple[str, tuple, tuple]]:
-    """The kernel launches of one eval forward at batch ``b`` of ``stack``
-    (N, H, W): (kernel, input shape, weight shapes)."""
-    n, h, w = stack
-    out = [("fm_conv_bn_relu", (b, 3, n, h, w), ((8, 3, 1, 9, 9),)),
-           ("rb2d_residual", (b, 8, n, h, w), ((8, 8, 1, 3, 3), (8, 8, 1, 3, 3))),
-           ("srd_attention_residual", (b, 8, n, h, w), ((8, 8, 3, 1, 1), (8, 8, 1, 1, 1)))]
-    if network == "e2e":
-        def block(cin, cout):
-            return ((cout, cin, 1, 3, 3), (cout, cin, 1, 1, 1), (cout, cout, 1, 3, 3))
-
-        out += [("rb_of_chain", (b, 3, n, h, w), ([block(3, 8), block(8, 8)],)),
-                ("rb_of_chain", (b, 16, n, h // 2, w // 2), ([block(16, 16)],)),
-                ("rb_of_chain", (b, 32, n, h // 4, w // 4), ([block(32, 32)],)),
-                ("motion_head_conv_chain", (b, 18, n, h, w),
-                 ((16, 18, 1, 3, 3), (16, 16, 1, 3, 3), (16, 16, 1, 3, 3), (3, 16, 1, 3, 3)))]
-    return out
-
-
 def forward_bound_s(network: str, b: int, stack: tuple, bf16: bool) -> float:
-    """Sum of ``bound_s`` over one forward's launches."""
-    return sum(bound_s(k, x, bf16, *ws) for k, x, ws in launches(network, b, stack))
+    """Sum of ``bound_s`` over the launches of one eval forward of
+    ``network`` at batch ``b`` of ``stack`` (its module's ``launches``)."""
+    table = work(network)
+    return sum(bound_s(k, x, bf16, *ws, table=table)
+               for k, x, ws in networks.load(network).launches(b, stack))
 
 
 @functools.lru_cache(maxsize=None)
@@ -113,15 +117,11 @@ def conv_flops_per_stack(network: str, stack: tuple) -> float:
     the plain reference, counted on meta tensors: the work whatever
     implements it (a packed graph's zero taps and the warps' products do not
     count)."""
-    specs = nets.specs(network)
+    net = networks.load(network)
     params = {k: torch.empty(shape, device="meta", dtype=torch.int64 if kind[0] == "count"
-                             else torch.float32) for k, (shape, kind) in specs.items()}
-    n, h, w = stack
-    inputs = [torch.empty((1, n, h, w, 3), device="meta"), torch.empty((1, n), device="meta")]
-    if network == "e2e":
-        inputs.append(torch.empty((1, n), device="meta"))
+                             else torch.float32) for k, (shape, kind) in net.specs().items()}
     counter = FlopCounterMode(display=False)
     with counter:
-        nets.forward(network, params, inputs)
+        net.reference(params, net.probe_inputs(stack, "meta"))
     counts: Dict = counter.get_flop_counts().get("Global", {})
     return float(sum(v for op, v in counts.items() if "convolution" in str(op)))
