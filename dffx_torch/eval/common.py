@@ -1,13 +1,15 @@
-"""Serving utilities: weights from a reference ``.pth``, a ``dffx`` ``.ckpt``
-or a seed, a timed eval forward with the reference's ``AVG_time``
-semantics (on one rank, or H-sharded over ``spatial`` ranks), the device of
-the command lines, and the jet depth JPEGs."""
+"""Serving utilities: DFFNet, the end-to-end network or DFV with weights
+from a reference ``.pth``, a ``dffx`` ``.ckpt`` or a seed, a timed eval
+forward with the reference's ``AVG_time`` semantics (on one rank, or
+H-sharded over ``spatial`` ranks), the device of the command lines, and the
+jet depth JPEGs."""
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
-from typing import Optional, Union
+from typing import Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -15,32 +17,68 @@ from torch import nn
 
 from dffx_torch.checkpoint import load_dffx_checkpoint, load_jax_params, load_torch_checkpoint
 from dffx_torch.data.native import require
-from dffx_torch.models import E2ENetwork, Network, e2e_init_params, init_params
+from dffx_torch.models import (DFV, E2ENetwork, Network, dfv_init_params, e2e_init_params,
+                               init_params)
 from dffx_torch.models.layers import spatial_serving
 from dffx_torch.models.packed import PACKED_DEFAULT
 from dffx_torch.parallel import distributed, make_mesh
 from dffx_torch.utils import profiling
 
 
+@dataclasses.dataclass(frozen=True)
+class Served:
+    """A network that ``load_params_auto`` builds: its module (given
+    ``packed``), its parameters drawn from a seed, the index of its depth map
+    ``pred3`` among its outputs, and whether a checkpoint of the JAX package
+    can hold it."""
+
+    build: Callable[[bool], nn.Module]
+    init: Callable[[int], Dict[str, np.ndarray]]
+    depth: int
+    dffx_checkpoint: bool
+
+
+#: the networks ``load_params_auto`` serves, by ``arch``
+NETWORKS = {
+    "dffnet": Served(Network, init_params, 3, True),
+    "e2e": Served(E2ENetwork, e2e_init_params, 3, True),
+    "dfv": Served(lambda packed: DFV(), dfv_init_params, 0, False),
+}
+
+
 def load_params_auto(source: Union[str, int], *, device="cuda", e2e: bool = False,
-                     packed: bool = PACKED_DEFAULT) -> nn.Module:
-    """An eval-mode ``Network`` (depth only) or, with ``e2e``, ``E2ENetwork``
-    (alignment + depth) on ``device``.  The weights come from a reference
-    ``.pth`` path (a torch state dict), from any other path as a checkpoint
-    the JAX package wrote (``dffx.checkpoint.save``, format v2: a ``.ckpt`` of
-    the train CLI, whose ``params`` are served) or from an int seed
-    (``init_params`` / ``e2e_init_params``).  ``packed``: DFFNet's EFDs and
+                     packed: bool = PACKED_DEFAULT, arch: str = "dffnet") -> nn.Module:
+    """The eval-mode network ``NETWORKS[arch]`` on ``device``: ``Network``
+    (depth only, the default), ``E2ENetwork`` (alignment + depth; ``e2e=True``
+    is the older spelling of ``arch="e2e"``) or ``DFV`` (depth and its
+    spread).  The weights come from a reference ``.pth`` path (a torch state
+    dict, or one under a training checkpoint's ``state_dict`` key, as DFV's
+    are saved), from any other path as a checkpoint the JAX package wrote
+    (``dffx.checkpoint.save``, format v2: a ``.ckpt`` of the train CLI, whose
+    ``params`` are served; not DFV, which the JAX package lacks) or from an
+    int seed (``Served.init``).  ``packed``: DFFNet's EFDs and
     full-resolution stage run space-to-depth (``models/packed.py``), the
     graph the JAX package serves; the weights are the same either way.  The
     default device is the GPU: without one this raises, and the CPU is used
     only when asked for (``device="cpu"``)."""
-    net = E2ENetwork(packed) if e2e else Network(packed)
+    if e2e and arch != "dffnet":
+        raise ValueError(f"e2e=True is arch='e2e'; it cannot be given with arch={arch!r}")
+    arch = "e2e" if e2e else arch
+    if arch not in NETWORKS:
+        raise ValueError(f"arch must be one of {sorted(NETWORKS)}, got {arch!r}")
+    served = NETWORKS[arch]
+    net = served.build(packed)
     if isinstance(source, int):
-        load_jax_params(net, (e2e_init_params if e2e else init_params)(source))
+        load_jax_params(net, served.init(source))
     elif not os.path.isfile(source):
         raise FileNotFoundError(f"checkpoint {source!r} not found")
     elif source.endswith(".pth"):
-        net.load_state_dict(load_torch_checkpoint(source))
+        sd = load_torch_checkpoint(source)
+        if isinstance(sd.get("state_dict"), dict):
+            sd = {k.removeprefix("module."): v for k, v in sd["state_dict"].items()}
+        net.load_state_dict(sd)
+    elif not served.dffx_checkpoint:
+        raise ValueError(f"{source!r}: {arch}'s weights come from a seed or a .pth")
     else:
         load_jax_params(net, load_dffx_checkpoint(source))
     return net.to(device).eval()
@@ -54,6 +92,13 @@ class TimedForward:
     ``avg_time`` is seconds per sample, as the reference's ``AVG_time``: with a
     batch of B, one call adds B samples.  Inputs after the focus distances
     (``E2ENetwork``'s ``fovs``) go to the model as fp32 tensors.
+
+    On the card a call returns once the previous call's forward has ended,
+    not its own: the next forward is enqueued while this one runs, so the
+    card does not idle between calls, and at most two forwards are in
+    flight.  The outputs are on the current stream, as any CUDA op's; a
+    reader on the host (``.cpu()``) waits for them.  ``total`` (seconds)
+    takes in the last forward's events when it is read.
 
     ``spatial > 1`` serves each forward over ``spatial`` processes, one rank
     each (``dffx_torch.parallel``; the process group must hold exactly that
@@ -81,7 +126,8 @@ class TimedForward:
         self.model = model.eval()
         self.dtype = dtype
         self.device = next(model.parameters()).device
-        self.total = 0.0
+        self._total = 0.0
+        self._pending = None  # the last forward's (start, end) events on the card
         self.count = 0
         self._spatial = None
         if spatial > 1:
@@ -119,16 +165,33 @@ class TimedForward:
                 with profiling.span("serve.forward", self.device, events=(start, end)):
                     outs = self._forward(fs, rest)
                     end.record(stream)
-                end.synchronize()
-                seconds = start.elapsed_time(end) / 1e3
+                self._settle()
+                self._pending = (start, end)
             else:
                 t0 = time.perf_counter()
                 with profiling.span("serve.forward", self.device):
                     outs = self._forward(fs, rest)
-                seconds = time.perf_counter() - t0
-        self.total += seconds
+                self._total += time.perf_counter() - t0
         self.count += int(fs.shape[0])
         return outs
+
+    def _settle(self) -> None:
+        """Wait for the last forward on the card and add its time."""
+        if self._pending is not None:
+            start, end = self._pending
+            end.synchronize()
+            self._total += start.elapsed_time(end) / 1e3
+            self._pending = None
+
+    @property
+    def total(self) -> float:
+        self._settle()
+        return self._total
+
+    @total.setter
+    def total(self, seconds: float) -> None:
+        self._settle()
+        self._total = seconds
 
     @property
     def avg_time(self) -> float:

@@ -4,7 +4,8 @@
     python -m dffx_torch.eval.test --dataset DDFF [--data-root Datasets/]
         [--results-root Results_test/] [--checkpoint path.pth|path.ckpt]
         [--dtype fp32|bf16] [--allow-random-init] [--batch_size 8] [--cpus 4]
-        [--device cuda|cpu] [--spatial S [--spatial-pallas | --spatial-xla]]
+        [--device cuda|cpu] [--arch dffnet|dfv]
+        [--spatial S [--spatial-pallas | --spatial-xla]]
 
 Same dataset dispatch, constants, metric prints (including the FlyingThings3D
 second pass over DefocusNet), jet-colormap depth JPEGs (``Depth/{idx}.jpg``)
@@ -12,7 +13,9 @@ and DDFF's ``predictions.npy``.  With ``--batch_size`` above 1 the samples are
 decoded by the ``Loader``'s threads, copied to the card ahead of use
 (``device_prefetch``) and run through ``TimedForward`` in batches.  The
 forward runs on ``--device`` (default ``cuda``; without a card the command
-raises, and ``--device cpu`` runs it on the CPU).
+raises, and ``--device cpu`` runs it on the CPU).  ``--arch dfv`` serves
+DFV (``dffx_torch/models/dfv.py``) in place of DFFNet, through the same
+``TimedForward`` and readers, its depth map being its ``pred3``.
 
 ``--spatial S`` serves each forward over S processes, one rank each, which
 run the kernels' chains on their rows of H behind one halo exchange and the
@@ -50,6 +53,7 @@ from dffx_torch.data import (
     device_prefetch,
 )
 from dffx_torch.eval.common import (
+    NETWORKS,
     TimedForward,
     checkpoint_or_seed,
     cli_device,
@@ -69,12 +73,15 @@ METRIC_NAMES = [
 ]
 
 
-def _pred3(outs) -> np.ndarray:
-    return outs[3].float().cpu().numpy()
+#: the networks ``--arch`` serves: those whose forward takes (fs, focus_dists)
+#: alone (the end-to-end network also takes fields of view, which these
+#: datasets lack)
+ARCHS = sorted(k for k in NETWORKS if k != "e2e")
 
 
-def iter_preds(fwd: TimedForward, dataset, *, batch_size=1, num_threads=4):
-    """Yield ``(idx, sample, pred3)`` in dataset order.
+def iter_preds(fwd: TimedForward, dataset, *, batch_size=1, num_threads=4, depth=3):
+    """Yield ``(idx, sample, pred3)`` in dataset order, ``pred3`` being the
+    forward's output ``depth``.
 
     ``batch_size > 1`` runs the forward over stacked samples: the ``Loader``
     decodes them in threads, ``device_prefetch`` copies each batch's ``fs``
@@ -83,15 +90,19 @@ def iter_preds(fwd: TimedForward, dataset, *, batch_size=1, num_threads=4):
     (Middlebury's ragged path-list shapes stay at batch 1).  Per-sample
     metric/print behaviour is unchanged; AVG_time amortizes the batch
     (TimedForward counts samples)."""
+
+    def pred3(outs) -> np.ndarray:
+        return outs[depth].float().cpu().numpy()
+
     if batch_size <= 1:
         for idx in range(len(dataset)):
             s = dataset[idx]
-            yield idx, s, _pred3(fwd(s["fs"][None], s["focus_dists"][None]))[0]
+            yield idx, s, pred3(fwd(s["fs"][None], s["focus_dists"][None]))[0]
         return
     loader = Loader(dataset, batch_size, shuffle=False, num_threads=num_threads)
     idx = 0
     for batch, on_device in device_prefetch(iter(loader), fwd.device, ("fs", "focus_dists")):
-        p3 = _pred3(fwd(on_device["fs"], on_device["focus_dists"]))
+        p3 = pred3(fwd(on_device["fs"], on_device["focus_dists"]))
         for b in range(p3.shape[0]):
             sample = {k: v[b] for k, v in batch.items()}
             if "unpadded" in sample:
@@ -105,12 +116,12 @@ def _silent(*args, **kwargs) -> None:
 
 
 def run_masked_eval(fwd, dataset, *, save_root, min_depth, max_depth, crop=True,
-                    batch_size=1, num_threads=4, primary=True):
+                    batch_size=1, num_threads=4, primary=True, depth=3):
     sums = {name: 0.0 for name, _ in METRIC_NAMES}
     acc = {f"Avg_accuracy_{k}": 0.0 for k in (1, 2, 3)}
     n = 0
     for idx, sample, pred in iter_preds(fwd, dataset, batch_size=batch_size,
-                                        num_threads=num_threads):
+                                        num_threads=num_threads, depth=depth):
         gt, mask = sample["depth"], sample["mask"]
         if crop:
             h, w = sample["unpadded"]
@@ -148,9 +159,13 @@ def main(argv=None):
     parser.add_argument("--cpus", type=int, default=4, help="decoder threads")
     parser.add_argument("--device", type=str, default="cuda",
                         help="where the forward runs; 'cpu' only when asked")
+    parser.add_argument("--arch", choices=ARCHS, default="dffnet",
+                        help="the network served: DFFNet (default) or DFV")
     add_spatial_flags(parser)
     args = parser.parse_args(argv)
     spatial_pallas = spatial_choice(parser, args)
+    if args.arch == "dfv" and args.spatial > 1:
+        parser.error("--spatial shards the kernels' chains of DFFNet; DFV has none")
 
     device = distributed.initialize(device=cli_device(args.device))
     try:
@@ -191,20 +206,21 @@ def _evaluate(args, device, spatial_pallas) -> None:
     jet = save_jet if primary else _silent
     dtype = torch.float32 if args.dtype == "fp32" else torch.bfloat16
     droot = args.data_root
-    bs, cpus = args.batch_size, args.cpus
+    bs, cpus, depth = args.batch_size, args.cpus, NETWORKS[args.arch].depth
 
     def make_fwd(root):
         path = args.checkpoint or os.path.join(root, "check_point.pth")
         source = checkpoint_or_seed(path, allow_random=args.allow_random_init)
-        return TimedForward(load_params_auto(source, device=device), dtype=dtype,
-                            spatial=args.spatial, spatial_pallas=spatial_pallas)
+        return TimedForward(load_params_auto(source, device=device, arch=args.arch),
+                            dtype=dtype, spatial=args.spatial, spatial_pallas=spatial_pallas)
 
     if args.dataset == "DefocusNet":
         root = os.path.join(args.results_root, "DefocusNet/")
         fwd = make_fwd(root)
         dataset = DefocusNetDataset(root=os.path.join(droot, "fs_6/"), mode="test")
         run_masked_eval(fwd, dataset, save_root=root, min_depth=0.1, max_depth=1.5,
-                        crop=False, batch_size=bs, num_threads=cpus, primary=primary)
+                        crop=False, batch_size=bs, num_threads=cpus, primary=primary,
+                        depth=depth)
         say("AVG_time:", fwd.avg_time)
 
     elif args.dataset == "4D_Light_Field":
@@ -212,7 +228,8 @@ def _evaluate(args, device, spatial_pallas) -> None:
         fwd = make_fwd(root)
         dataset = HCIDataset(h5_path=os.path.join(droot, "HCI/HCI_FS_trainval.h5"), split="val")
         run_masked_eval(fwd, dataset, save_root=root, min_depth=-2.5, max_depth=2.5,
-                        crop=False, batch_size=bs, num_threads=cpus, primary=primary)
+                        crop=False, batch_size=bs, num_threads=cpus, primary=primary,
+                        depth=depth)
         say("AVG_time:", fwd.avg_time)
 
     elif args.dataset == "DDFF":
@@ -225,7 +242,7 @@ def _evaluate(args, device, spatial_pallas) -> None:
         min_depth = baseline * focal_length / 7
         preds = []
         for idx, _sample, pred in iter_preds(fwd, dataset, batch_size=bs,
-                                             num_threads=cpus):
+                                             num_threads=cpus, depth=depth):
             pred = pred[: dataset.HEIGHT, : dataset.WIDTH]
             preds.append(pred)
             jet(
@@ -243,7 +260,7 @@ def _evaluate(args, device, spatial_pallas) -> None:
         avg_mse = avg_mae = 0.0
         n = 0
         for idx, sample, pred in iter_preds(fwd, dataset, batch_size=bs,
-                                            num_threads=cpus):
+                                            num_threads=cpus, depth=depth):
             h, w = sample["unpadded"]
             pred = pred[:h, :w]
             gt, mask, conf = sample["depth"], sample["mask"], sample["conf"]
@@ -270,7 +287,7 @@ def _evaluate(args, device, spatial_pallas) -> None:
             fwd, dataset, save_root=os.path.join(root, "Middlebury/"),
             min_depth=10, max_depth=60,
             # path-list scenes have per-scene shapes — stay sample-at-a-time
-            batch_size=1, primary=primary,
+            batch_size=1, primary=primary, depth=depth,
         )
         say("AVG_time:", fwd.avg_time)
         # second pass over DefocusNet with range [0.1, 1.5] (`test.py:182-241`)
@@ -278,7 +295,7 @@ def _evaluate(args, device, spatial_pallas) -> None:
         run_masked_eval(
             fwd, dataset2, save_root=os.path.join(root, "DefocusNet/"),
             min_depth=0.1, max_depth=1.5, crop=False,
-            batch_size=bs, num_threads=cpus, primary=primary,
+            batch_size=bs, num_threads=cpus, primary=primary, depth=depth,
         )
     else:
         raise SystemExit(f"unknown --dataset {args.dataset!r}")

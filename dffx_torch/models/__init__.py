@@ -1,5 +1,5 @@
-"""dffx_torch.models — DFFNet and the end-to-end network as ``nn.Module``s
-keyed like the reference."""
+"""dffx_torch.models — DFFNet, the end-to-end network and DFV as
+``nn.Module``s keyed like their references."""
 
 from dffx_torch.models.alignnet import (
     E2ENetwork,
@@ -10,6 +10,7 @@ from dffx_torch.models.alignnet import (
     e2e_init_params,
 )
 from dffx_torch.models.dffnet import DFFNet, Hourglass, HourglassUp, Network, init_params
+from dffx_torch.models.dfv import DFV, dfv_init_params
 from dffx_torch.models.layers import EFD, SRD, FMModule, ResnetBlock2d, init_module_params
 
 __all__ = [
@@ -18,6 +19,8 @@ __all__ = [
     "HourglassUp",
     "Network",
     "init_params",
+    "DFV",
+    "dfv_init_params",
     "E2ENetwork",
     "FlowNetwork",
     "MotionHead",

@@ -11,9 +11,10 @@ activations' own.  cuDNN's 16-bit convs and deconvs run NDHWC kernels, and an
 NCDHW operand costs them a transpose in and one out, so DFFNet's 16-bit eval
 activations are ``torch.channels_last_3d`` (``activation_format``).  Each
 conv and deconv of a 16-bit input adds one to the counter
-``stock.conv_ndhwc`` (an NDHWC input) or ``stock.conv_ncdhw`` (any other,
-which cuDNN transposes) while the program's counters record
-(``utils/profiling.py``).
+``stock.conv_ndhwc`` (an input laid out NDHWC, which includes one whose
+size-1 axes make it NCDHW too, as a pooled ``(B, C, 1, 1, 1)`` is) or
+``stock.conv_ncdhw`` (any other, which cuDNN transposes) while the program's
+counters record (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -51,14 +52,28 @@ def layout_of(x: torch.Tensor) -> torch.memory_format:
     return torch.channels_last_3d if is_ndhwc(x) else torch.contiguous_format
 
 
+def per_slice(x: torch.Tensor, fn) -> torch.Tensor:
+    """``fn`` applied to each slice of an NDHWC ``x (B, C, N, H, W)`` at once,
+    as a 2-D op on its channels-last ``(B * N, C, H, W)`` view (no copy):
+    ``fn`` maps that view to ``(B * N, C', H', W')``, whose channels-last
+    result comes back as an NDHWC ``(B, C', N, H', W')`` view."""
+    b, c, n, h, w = x.shape
+    y = fn(x.transpose(1, 2).reshape(b * n, c, h, w))
+    return y.reshape(b, n, *y.shape[1:]).transpose(1, 2)
+
+
 def ndhwc_weight(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """A conv or deconv weight as cuDNN reads it for an NDHWC ``x``: in x's
     dtype and NDHWC (what ``layers.Conv3d`` keeps in a ``ParamCache``)."""
     return w.to(x.dtype).contiguous(memory_format=torch.channels_last_3d)
 
 
-def _count_layout(x: torch.Tensor, ndhwc: bool) -> None:
-    if x.dtype in _HALF:
+def _count_layout(x: torch.Tensor) -> None:
+    """Count a 16-bit conv's input layout while the counters record: NDHWC
+    where cuDNN reads it as it lies, a tensor contiguous in both layouts
+    included."""
+    if x.dtype in _HALF and profiling.enabled():
+        ndhwc = x.is_contiguous(memory_format=torch.channels_last_3d)
         profiling.count("stock.conv_ndhwc" if ndhwc else "stock.conv_ncdhw")
 
 
@@ -72,7 +87,7 @@ def conv3d(x: torch.Tensor, w: torch.Tensor, *, bias=None, stride=1, padding=0,
     transpose it, with the same sums: one output channel (``_one_channel``)
     and a kernel that spans N alone (``_along_n``)."""
     ndhwc = is_ndhwc(x)
-    _count_layout(x, ndhwc)
+    _count_layout(x)
     w = w.to(x.dtype)
     bias = None if bias is None else bias.to(x.dtype)
     if ndhwc:
@@ -118,6 +133,6 @@ def deconv3d(x: torch.Tensor, w: torch.Tensor, *, stride=(1, 2, 2), padding=1,
     Defaults are the only configuration the reference uses: k3, pad 1,
     stride ``(1, 2, 2)`` and ``output_padding=(0, 1, 1)``, which doubles H and
     W and keeps the focus axis N.  On the card the output has x's layout."""
-    _count_layout(x, is_ndhwc(x))
+    _count_layout(x)
     return F.conv_transpose3d(x, w.to(x.dtype), stride=stride, padding=padding,
                               output_padding=output_padding)

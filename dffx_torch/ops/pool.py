@@ -1,8 +1,9 @@
 """Pooling in ``(B, C, N, H, W)``: the EFD max-pool
 (`Depth_Estimation_Network.py:310`), the hourglassup avg-pool pyramid
-(`:149-153`) and the motion heads' ``AdaptiveAvgPool3d((10, 1, 1))``
-(`End_to_End/End_to_End.py:40`).  The focus axis N is never strided.
-The max- and avg-pools keep an NDHWC input NDHWC (``ops/conv.py``)."""
+(`:149-153`), the motion heads' ``AdaptiveAvgPool3d((10, 1, 1))``
+(`End_to_End/End_to_End.py:40`) and DFV's pyramid pooling, whose decoders'
+windows span N too.  The max- and avg-pools keep an NDHWC input NDHWC
+(``ops/conv.py``)."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch.nn.modules.utils import _triple
 
-from dffx_torch.ops.conv import is_ndhwc
+from dffx_torch.ops.conv import is_ndhwc, per_slice
 
 
 def max_pool3d(x: torch.Tensor, window, stride=None) -> torch.Tensor:
@@ -24,14 +25,18 @@ def avg_pool3d(x: torch.Tensor, window, stride=None) -> torch.Tensor:
     ``F.avg_pool3d`` returns NCDHW whatever its input's layout, so an NDHWC
     ``x`` pooled over H and W alone runs as ``F.avg_pool2d`` on its
     channels-last ``(B * N, C, H, W)`` view: the same fp32 sum over the same
-    window in the same order, and an NDHWC output with no copy."""
+    window in the same order, and an NDHWC output with no copy.  Pooled over
+    N too, its output is copied to NDHWC (DFV's decoders: at most a few
+    values a channel); the CPU, which has no 16-bit ``avg_pool3d``, sums in
+    fp32 as the card does."""
     window = _triple(window)
     stride = _triple(stride if stride is not None else window)
-    if window[0] != 1 or stride[0] != 1 or not is_ndhwc(x):
+    if not is_ndhwc(x):
         return F.avg_pool3d(x, window, stride)
-    b, c, n, h, w = x.shape
-    y = F.avg_pool2d(x.transpose(1, 2).reshape(b * n, c, h, w), window[1:], stride[1:])
-    return y.reshape(b, n, c, *y.shape[2:]).transpose(1, 2)
+    if window[0] != 1 or stride[0] != 1:
+        y = F.avg_pool3d(x if x.is_cuda else x.float(), window, stride).to(x.dtype)
+        return y.contiguous(memory_format=torch.channels_last_3d)
+    return per_slice(x, lambda y: F.avg_pool2d(y, window[1:], stride[1:]))
 
 
 def adaptive_avg_pool_focus(x: torch.Tensor, n_out: int) -> torch.Tensor:

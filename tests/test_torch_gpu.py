@@ -964,3 +964,76 @@ def test_spatial_forwards_on_the_card(cuda, tmp_path):
             assert r["launches", *key] == {k: launches.get(k, 0) for k in E2E_LAUNCHES}, key
             for g, ref in zip(r[key], want):
                 torch.testing.assert_close(g, ref.cpu(), rtol=0, atol=1e-4)
+
+
+def test_dfv_bf16_on_the_card_matches_the_reference(cuda):
+    """DFV served in bf16 NDHWC (``TimedForward``) at b2 of the cell's
+    10 x 384 x 576 stacks against the plain fp32 reference
+    (``tests/dfv_reference.py``) on the card, under the limits of the
+    cell ``dfv-ddff12.batch-b32`` (rms gap over the reference's rms); its
+    weights drawn as the benchmark draws them (MSRA convs but the head's
+    last, U(+-1 / (4 sqrt(fan_in))); BatchNorm away from the identity).  No
+    hand kernel launches."""
+    import json
+    from pathlib import Path
+
+    from dfv_reference import DFVReference, reference_state_dict
+
+    from dffx_torch.eval import TimedForward, load_params_auto
+    from dffx_torch.models.layers import BatchNorm3d
+
+    limits = json.loads((Path(__file__).resolve().parents[1] / "portbench" / "limits"
+                         / "dfv-ddff12.batch-b32.json").read_text())["limits"]
+    net = load_params_auto(3, arch="dfv", device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, BatchNorm3d):
+                for t, lo, hi in ((m.weight, 0.8, 1.2), (m.bias, -0.1, 0.1),
+                                  (m.running_mean, -0.1, 0.1), (m.running_var, 0.8, 1.2)):
+                    t.copy_(lo + (hi - lo) * torch.rand(t.shape, generator=g, device=cuda))
+        head = net.decoder3.classify[2][0].weight
+        bound = 0.25 * head[0].numel() ** -0.5
+        head.copy_(bound * (2 * torch.rand(head.shape, generator=g, device=cuda) - 1))
+    ref = DFVReference().to(cuda).eval()
+    ref.load_state_dict(reference_state_dict(net.state_dict()))
+    fs = (torch.rand((2, 10, 384, 576, 3), generator=g, device=cuda) * 2 - 1).bfloat16()
+    fd = torch.linspace(0.2, 7.0, 10, device=cuda).expand(2, 10).contiguous()
+    got = TimedForward(net, dtype=torch.bfloat16)(fs, fd)
+    with torch.inference_mode():
+        want = ref(fs.float(), fd)
+    assert sum(tk.launches.values()) == 0
+    assert len(got) == len(want) == 3
+    for name, o, w in zip(("pred3", "std3", "cost3"), got, want):
+        assert o.dtype == torch.bfloat16
+        if f"{name}_rms" in limits:  # the outputs the cell holds to a limit
+            gap = float((o.float() - w).square().mean().sqrt() / w.square().mean().sqrt())
+            assert gap <= limits[f"{name}_rms"], (name, gap)
+
+
+def test_timed_forward_returns_after_the_previous_forward(cuda):
+    """On the card ``TimedForward`` waits for the previous call's forward,
+    not its own: after a call, only its own events are pending; reading
+    ``total`` takes them in; the outputs are the model's, and ``avg_time``
+    is the events' time a sample."""
+    from dffx_torch.eval import TimedForward, load_params_auto
+
+    net = load_params_auto(0, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    fs = torch.rand((2, 5, 64, 96, 3), generator=g, device=cuda) * 2 - 1
+    fd = torch.linspace(0.2, 7.0, 5, device=cuda).expand(2, 5).contiguous()
+    tf = TimedForward(net)
+    outs = [tf(fs, fd) for _ in range(3)]
+    last = tf._pending
+    assert last is not None and tf.count == 6
+    total = tf.total
+    assert tf._pending is None and last[1].query()
+    assert total > 0 and tf.avg_time == pytest.approx(total / 6)
+    with torch.inference_mode():
+        want = net(fs, fd)
+    for got in outs:
+        for o, w in zip(got, want):
+            torch.testing.assert_close(o, w, rtol=1e-5, atol=1e-5)
+    tf.total, tf.count = 0.0, 0
+    tf(fs, fd)
+    assert 0 < tf.total < total
