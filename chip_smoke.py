@@ -3,11 +3,19 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-Builds the five CUDA kernels from dffx_torch/csrc and holds each against its
-plain PyTorch twin on the card, in fp32 and bf16, at the shapes its paths
-give it, at ragged and tiny ones, at a batch of many tiles and at more than
-65,535 slices, each row with the least time the card could take for the same
-work (``bound_ms``).  Then it drives two paths:
+Builds the CUDA kernels from dffx_torch/csrc (``KERNELS``) and holds each of
+the five that replace Pallas kernels against its plain PyTorch twin on the
+card, in fp32 and bf16, at the shapes its paths give it, at ragged and tiny
+ones, at a batch of many tiles and at more than 65,535 slices, each row with
+the least time the card could take for the same work (``bound_ms``).  The
+sixth, ``bn_act`` (the 16-bit eval BatchNorm's pass, with its residual add
+and ReLU; it replaces no Pallas kernel), is held to its twin bit for bit in
+bf16 and fp16 (``bn_act_rows``): at the two b32 serving cells' NDHWC
+activations and FlowNetwork's NCDHW ones, with and without the residual, and
+at the layouts its general path takes (C % 8 != 0, N * H * W % 8 != 0, a view
+not 16-byte aligned), each BN's scale and shift away from the identity, with
+its bound (bytes at the HBM rate), its twin's time and ATen's multiply, add,
+residual add and ReLU as the comparison.  Then it drives two paths:
 
 * DFFNet (depth only): the goldens, the forward against the same model on
   the CPU, and serving synthetic 10 x 384 x 384 stacks through
@@ -186,8 +194,10 @@ BF16_LOSS_RTOL, BF16_GRAD_COS = 0.02, 0.25
 #: amplifies the rounding of its bf16 activations up to the coarse heads.
 BF16_RTOL = {"mid": 0.15, "pred1": 0.12, "pred2": 0.06, "pred3": 0.05, "warped": 0.02,
              "motion": 0.005}
-#: TPU kernels the CUDA kernels replace (dffx/ops/pallas_kernels.py pallas_call sites)
-REPLACES = {
+#: the CUDA kernels: each one's source and the TPU kernel it replaces
+#: (dffx/ops/pallas_kernels.py pallas_call sites), None for ``bn_act``, the
+#: 16-bit eval BN's pass: XLA fuses the JAX package's eval BN into the conv
+KERNELS = {
     "fm_conv_bn_relu": ("dffx_torch/csrc/fm_conv.cu", "dffx/ops/pallas_kernels.py:144"),
     "rb2d_residual": ("dffx_torch/csrc/rb2d.cu", "dffx/ops/pallas_kernels.py:329"),
     "srd_attention_residual": ("dffx_torch/csrc/srd_attention.cu",
@@ -195,7 +205,10 @@ REPLACES = {
     "rb_of_chain": ("dffx_torch/csrc/rb_of.cu", "dffx/ops/pallas_kernels.py:726"),
     "motion_head_conv_chain": ("dffx_torch/csrc/motion_head.cu",
                                "dffx/ops/pallas_kernels.py:508"),
+    "bn_act": ("dffx_torch/csrc/bn_act.cu", None),
 }
+#: the five that replace a TPU kernel, in fp32 and bf16 against their twins
+PORTED = tuple(name for name, (_, tpu) in KERNELS.items() if tpu)
 #: Published peaks of one H100 SXM at its full power limit (NVIDIA's data sheet):
 #: HBM bytes/s and dense TF32 and bf16 FLOP/s.  In fp32 the kernels' functions
 #: are fp32 convs; on the tensor cores an fp32-accurate product costs three TF32
@@ -260,10 +273,28 @@ PACKERS = {"fm_conv_bn_relu": "fm_conv_params", "rb2d_residual": "rb2d_params",
            "rb_of_chain": "rb_of_chain_params", "motion_head_conv_chain": "motion_head_params",
            "srd_attention_residual": "srd_attention_params"}
 
-#: launches of each kernel in one forward of each network
+#: launches of each of the five kernels in one forward of each network
 DFFNET_LAUNCHES = {"fm_conv_bn_relu": 1, "rb2d_residual": 1, "srd_attention_residual": 1}
 FLOWNET_LAUNCHES = {"rb_of_chain": 3, "motion_head_conv_chain": 1}
 E2E_LAUNCHES = {**DFFNET_LAUNCHES, **FLOWNET_LAUNCHES}
+#: ``bn_act`` launches in one bf16 eval forward: every eval BN outside the five
+#: kernels (DFFNet 55 in either graph, FlowNetwork's stock layers 10;
+#: tests/test_torch_bn_act.py counts them on the CPU); none in fp32 or training
+BN_PASSES = {"dffnet": 55, "flownet": 10, "e2e": 65}
+NET_LAUNCHES = {"dffnet": DFFNET_LAUNCHES, "flownet": FLOWNET_LAUNCHES, "e2e": E2E_LAUNCHES}
+
+
+def want_launches(net: str, dtype, forwards: int = 1) -> dict:
+    """Launches of each kernel in ``forwards`` eval forwards of ``net``
+    ("dffnet", "flownet", "e2e") in ``dtype`` (a torch dtype or its name)."""
+    bf16 = str(dtype).split(".")[-1] in ("bfloat16", "bf16")
+    return {**{k: v * forwards for k, v in NET_LAUNCHES[net].items()},
+            "bn_act": BN_PASSES[net] * forwards if bf16 else 0}
+
+
+def add_launches(*wants: dict) -> dict:
+    """The sum of launch counts, kernel by kernel."""
+    return {k: sum(w.get(k, 0) for w in wants) for k in KERNELS}
 
 
 def emit(obj) -> None:
@@ -359,7 +390,7 @@ def phase_kernels(torch, tk, dev) -> dict:
     from dffx_torch.headline import gate_bound
 
     rng = np.random.default_rng(0)
-    path = {name: {"float32": [], "bfloat16": []} for name in REPLACES}
+    path = {name: {"float32": [], "bfloat16": []} for name in PORTED}
     for name, tag, args in kernel_cases(rng, torch, tk, dev):
         kernel, twin = getattr(tk, name), getattr(tk, f"{name}_ref")
         for dtype in (torch.float32, torch.bfloat16):
@@ -392,6 +423,89 @@ def phase_kernels(torch, tk, dev) -> dict:
             if tag.startswith("e2e"):
                 path[name][row["dtype"]].append(row)
     return path
+
+
+#: ``bn_act`` rows: (tag, shape, layout, residual, dtype).  The two b32
+#: serving cells' NDHWC activations at 10 x 384 x 576 (``BN_ACT_CELLS``:
+#: DFFNet's 16ch @ 1/2 with the residual, its packed full resolution as 32ch
+#: @ 1/2; DFV's 3-D decoder's 32ch @ 1/4 with the residual, its 16ch @ 1/2),
+#: FlowNetwork's NCDHW ones at 608 x 1088 (16ch @ 1/2 with the residual, 8ch
+#: at full resolution), then the general path's: NDHWC with C % 8 != 0, NCDHW
+#: with N * H * W % 8 != 0 (FlowNetwork at another image size), a view 2 bytes
+#: off 16-byte alignment; and fp16
+BN_ACT_CASES = (("dffnet_half_z", (32, 16, 10, 192, 288), "ndhwc", True, "bfloat16"),
+                ("dffnet_packed", (32, 32, 10, 192, 288), "ndhwc", False, "bfloat16"),
+                ("dfv_quarter_z", (32, 32, 10, 96, 144), "ndhwc", True, "bfloat16"),
+                ("dfv_half", (32, 16, 10, 192, 288), "ndhwc", False, "bfloat16"),
+                ("flownet_half_z", (1, 16, 10, 304, 544), "ncdhw", True, "bfloat16"),
+                ("flownet_full", (1, 8, 10, 608, 1088), "ncdhw", False, "bfloat16"),
+                ("ndhwc_c12_z", (2, 12, 10, 96, 144), "ndhwc", True, "bfloat16"),
+                ("ncdhw_odd_z", (1, 16, 10, 150, 271), "ncdhw", True, "bfloat16"),
+                ("misaligned_z", (1, 16, 10, 152, 272), "ncdhw", True, "bfloat16"),
+                ("fp16_half_z", (32, 16, 10, 192, 288), "ndhwc", True, "float16"))
+BN_ACT_CELLS = ("dffnet_half_z", "dffnet_packed", "dfv_quarter_z", "dfv_half")
+
+
+def bn_act_rows(torch, tk, dev) -> dict:
+    """``bn_act`` against its twin on the card per BN_ACT_CASES, ReLU on: x
+    and z uniform in [-2, 2), scale and shift a BN folded away from the
+    identity (``kernel_cases``' draw), rounded to the activation dtype.  Each
+    row must equal the twin bit for bit (the same fp32 arithmetic, one
+    rounding) and count one launch; it gives its time, its twin's, ATen's
+    multiply, add, residual add and ReLU on the same operands (the path before
+    the pass, ``aten_ms``) and its bound: the bytes read and written at the
+    HBM rate.  Returns the rows at BN_ACT_CELLS under "bfloat16", as
+    ``phase_kernels`` does for the five."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    gen = torch.Generator(dev).manual_seed(5)
+    cells = []
+    for tag, shape, layout, residual, dtype_name in BN_ACT_CASES:
+        dtype = getattr(torch, dtype_name)
+        fmt = torch.channels_last_3d if layout == "ndhwc" else torch.contiguous_format
+
+        def draw():
+            u = torch.rand(shape, generator=gen, device=dev).mul_(4).sub_(2)
+            return u.to(dtype).contiguous(memory_format=fmt)
+
+        x, z = draw(), (draw() if residual else None)
+        if tag.startswith("misaligned"):  # x contiguous: the same values 2 bytes on
+            flat = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+            flat[1:] = x.flatten()
+            x = flat[1:].view(shape)
+        g, b, mu, va = (torch.from_numpy(a.astype("float32")) for a in (
+            rng.standard_normal(shape[1]), rng.standard_normal(shape[1]),
+            rng.standard_normal(shape[1]) * 0.1, rng.random(shape[1]) + 0.5))
+        scale, shift = (t.to(dev, dtype) for t in tk.bn_fused_affine(g, b, mu, va))
+        check(tk.bn_act_layout(x, z) == layout, f"bn_act {tag}: read as {layout}?")
+        before = tk.launches["bn_act"]
+        got = tk.bn_act(x, scale, shift, z, True)
+        torch.cuda.synchronize()
+        check(tk.launches["bn_act"] == before + 1, f"bn_act {tag}: launches")
+        ref = tk.bn_act_ref(x, scale, shift, z, True)
+        view = (1, -1, 1, 1, 1)
+
+        def aten():
+            y = x * scale.view(view) + shift.view(view)
+            return torch.relu(y if z is None else y + z)
+
+        ms = median_ms(lambda: tk.bn_act(x, scale, shift, z, True))
+        least_ms = x.nbytes * (3 if residual else 2) / HBM_BYTES_PER_S * 1e3
+        row = {"phase": "kernel", "kernel": "bn_act", "shape": tag, "in": list(shape),
+               "layout": layout, "residual": residual, "dtype": dtype_name,
+               "equal_to_twin": torch.equal(got, ref),
+               "max_abs_err": (got.float() - ref.float()).abs().max().item(), "ms": ms,
+               "plain_ms": median_ms(lambda: tk.bn_act_ref(x, scale, shift, z, True)),
+               "aten_ms": median_ms(aten), "bound_ms": least_ms, "bound_by": "bytes",
+               "ms_over_bound": ms / least_ms}
+        emit(row)
+        check(row["equal_to_twin"], f"bn_act {tag}: not its twin ({row['max_abs_err']})")
+        if tag in BN_ACT_CELLS:
+            cells.append(row)
+        del x, z, got, ref
+    torch.cuda.empty_cache()
+    return {"float32": [], "bfloat16": cells}
 
 
 def fm_conv_library(torch, tk, dev) -> dict:
@@ -439,7 +553,9 @@ def kernel_entry(name: str, rows: dict, launches: int, train_launches: int,
     """One kernel of the result line: its fp32 rows at the end-to-end path's
     shapes summed (``rows``: those rows by dtype); a kernel with several
     (rb_of_chain's three pyramid levels) also lists each under ``levels``;
-    ``bf16``: its bf16 rows there, summed the same way.  ``launches``: in the
+    ``bf16``: its bf16 rows there, summed the same way (``bn_act``: no fp32
+    rows, and its bf16 rows at the two b32 serving cells' shapes, with ATen's
+    time as ``aten_ms``).  ``launches``: in the
     end-to-end serving run; ``train_launches``: in every train step (one process and data
     parallel); ``cli_launches``: in each command line's measured run
     (``train_cli`` and ``dp_train_cli``: their validation forwards);
@@ -451,19 +567,22 @@ def kernel_entry(name: str, rows: dict, launches: int, train_launches: int,
     (``fm_conv_library``; its bf16 time under ``library``), else null (see
     ``bound_ms``)."""
     bf16, rows = rows["bfloat16"], rows["float32"]
-    entry = {"name": name, "route": "cuda", "source": REPLACES[name][0],
-             "replaces": REPLACES[name][1], "launches": launches,
+    entry = {"name": name, "route": "cuda", "source": KERNELS[name][0],
+             "replaces": KERNELS[name][1], "launches": launches,
              "train_launches": train_launches, "cli_launches": cli_launches,
              "spatial_launches": spatial_launches, "headline_launches": headline_launches,
-             "max_abs_err": max(r["max_abs_err"] for r in rows),
-             "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
-             "bound_ms": sum(r["bound_ms"] for r in rows),
-             "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
              "library_ms": None if library is None else library["library_ms"]}
+    if rows:  # bn_act has no fp32
+        entry.update({"max_abs_err": max(r["max_abs_err"] for r in rows),
+                      "ms": sum(r["ms"] for r in rows),
+                      "plain_ms": sum(r["plain_ms"] for r in rows),
+                      "bound_ms": sum(r["bound_ms"] for r in rows),
+                      "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"]})
+        entry["ms_over_bound"] = entry["ms"] / entry["bound_ms"]
     if library is not None:
         entry["library"] = library
-    entry["ms_over_bound"] = entry["ms"] / entry["bound_ms"]
-    entry["bf16"] = {k: sum(r[k] for r in bf16) for k in ("ms", "plain_ms", "bound_ms")}
+    entry["bf16"] = {k: sum(r[k] for r in bf16) for k in ("ms", "plain_ms", "bound_ms")
+                     + (("aten_ms",) if "aten_ms" in bf16[0] else ())}
     entry["bf16"]["max_abs_err"] = max(r["max_abs_err"] for r in bf16)
     entry["bf16"]["ms_over_bound"] = entry["bf16"]["ms"] / entry["bf16"]["bound_ms"]
     if len(rows) > 1:
@@ -475,7 +594,7 @@ def kernel_entry(name: str, rows: dict, launches: int, train_launches: int,
 
 def check_launches(got: dict, want: dict, what: str) -> None:
     """Exactly ``want`` launches of each kernel, 0 of every other."""
-    full = {name: want.get(name, 0) for name in REPLACES}
+    full = {name: want.get(name, 0) for name in KERNELS}
     check(dict(got) == full, f"{what}: launches {dict(got)} != {full}")
 
 
@@ -510,18 +629,19 @@ def check_depth(torch, outs, fd, dtype, shape, phase, stack, launches) -> None:
     check(all(tuple(t.shape) == shape for t in outs), f"{phase} output shapes")
 
 
-def packed_vs_plain(torch, tk, net, other, args, names, default_outs, launches, shape) -> None:
+def packed_vs_plain(torch, tk, net, other, args, names, default_outs, network, shape) -> None:
     """The packed graph against the unpacked one on the card, same weights and
     inputs: fp32 within ``FP32_ATOL`` on every output, bf16 reported.  ``net``
     runs the default graph and ``default_outs`` holds its outputs per dtype
-    (on the CPU); ``other`` runs the other graph here."""
+    (on the CPU); ``other`` runs the other graph here, launching what
+    ``want_launches(network, dtype)`` says."""
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         tk.reset_launches()
         with torch.inference_mode():
             o = other(args[0].to(dtype), *args[1:])
         torch.cuda.synchronize()
-        check_launches(tk.launches, launches, f"packed_vs_plain {dtype}")
+        check_launches(tk.launches, want_launches(network, dtype), f"packed_vs_plain {dtype}")
         errs[dtype] = max_errs(names, o, default_outs[dtype])
     check(net.DFF_net.packed != other.DFF_net.packed, "packed_vs_plain: one graph twice")
     emit({"phase": "packed_vs_plain", "shape": shape, "default_packed": net.DFF_net.packed,
@@ -903,7 +1023,7 @@ def phase_eval_cli(torch, np, tk, dev, smi) -> dict:
                 "--allow-random-init", "--dtype", dtype, "--batch_size", str(batch)])
             torch.cuda.synchronize()
             forwards = -(-DDFF_STACKS // batch)
-            check_launches(tk.launches, {k: v * forwards for k, v in DFFNET_LAUNCHES.items()},
+            check_launches(tk.launches, want_launches("dffnet", dtype, forwards),
                            f"eval_cli {dtype} b{batch}")
             launched[tag] = dict(tk.launches)
             preds[tag] = np.load(f"{tmp}/{tag}/DDFF/predictions.npy")
@@ -1609,6 +1729,11 @@ SPATIAL_CASES = (("dffnet", False, (384, 576), ("float32", "bfloat16"), True),
 CHAIN_HEIGHTS = {"fm_conv_bn_relu": (1,), "rb2d_residual": (1,), "srd_attention_residual": (1,),
                  "rb_of_chain": (1, 2, 4), "motion_head_conv_chain": (1,)}
 HALO_ROWS = 16  # dffx_torch.ops.halo.HALO
+#: ``bn_act`` launches a rank in one bf16 forward with the kernels at 384 rows
+#: over SPATIAL_RANKS: the whole forward's (BN_PASSES) and the stock layers'
+#: at the edge rows of each chain that splits, 3 in DFFNet and 12 in E2E (the
+#: same on every rank, and on the CPU under ``profiling.collect()``)
+SPATIAL_BN_PASSES = {"dffnet": 58, "e2e": 77}
 #: a sharded chain against the same chain whole on the same input, and the
 #: sharded forward against the whole forward with the same edge rows patched
 #: in: a share of the largest value (bf16 keeps 8 bits)
@@ -1673,9 +1798,9 @@ def watch_kernel_rows(tk) -> dict:
     call the wrappers (``layers``, ``alignnet``); clear the lists to start."""
     from dffx_torch.models import alignnet, layers
 
-    rows = {name: [] for name in REPLACES}
+    rows = {name: [] for name in PORTED}
     for module in (layers, alignnet):
-        for name in REPLACES:
+        for name in PORTED:
             fn = getattr(module, name, None)
             if fn is None:
                 continue
@@ -2099,9 +2224,10 @@ def phase_dp_train_cli(torch, np, tk, dev, smi) -> dict:
 def phase_spatial(torch, np, tk, dev, smi) -> dict:
     """``TimedForward(spatial=2)`` (``--spatial 2``) on SPATIAL_RANKS ranks that
     share the card, per SPATIAL_CASES.  Checks, on every rank, after every
-    case's row is printed: every kernel launched once a forward a rank
-    (``rb_of_chain`` three times) on the rows ``shard_rows`` gives, none under
-    ``--spatial-xla``; the outputs finite, pred3 in the focus range (the
+    case's row is printed: each of the five kernels launched once a forward a
+    rank (``rb_of_chain`` three times) on the rows ``shard_rows`` gives, none
+    under ``--spatial-xla``, and ``bn_act`` SPATIAL_BN_PASSES times a bf16
+    forward, never in fp32; the outputs finite, pred3 in the focus range (the
     serving phases' ``check_depth``); each chain whose height splits, against
     the same chain whole on the same input, within SITE_RTOL of its largest
     value in its edge rows and in the rest (the edge rows are the stock
@@ -2113,10 +2239,10 @@ def phase_spatial(torch, np, tk, dev, smi) -> dict:
     the port's kernels-to-stock bound); in bf16 the outputs' RMS gap to the
     whole fp32 forward within RMS_RATIO of the whole bf16 forward's.  Each
     output's bound adds the whole forward's gap to itself, run again.
-    Returns, per kernel, its launches on rank 0 per case."""
+    Returns, per kernel, its launches on rank 0 per case and dtype."""
     with tempfile.TemporaryDirectory() as tmp:
         ranks = start_ranks("spatial", SPATIAL_RANKS, tmp)
-    per_kernel = {name: {} for name in REPLACES}
+    per_kernel = {name: {} for name in KERNELS}
     for i, case in enumerate(ranks[0]["cases"]):
         emit({"phase": "spatial", "device": smi, "case": case["case"], "shape": case["shape"],
               "dtype": case["dtype"], "ranks": SPATIAL_RANKS, "backend": ranks[0]["backend"],
@@ -2140,14 +2266,18 @@ def phase_spatial(torch, np, tk, dev, smi) -> dict:
           "ms_alone": [r["collective_ms"] for r in ranks]})
     for i, case in enumerate(ranks[0]["cases"]):
         h = case["shape"][2]
-        want = ((E2E_LAUNCHES if case["e2e"] else DFFNET_LAUNCHES) if case["kernels"] else {})
+        network = "e2e" if case["e2e"] else "dffnet"
+        want = NET_LAUNCHES[network] if case["kernels"] else {}
         want_rows = {k: sorted({shard_rows(h // f, SPATIAL_RANKS) for f in CHAIN_HEIGHTS[k]})
                      for k in want}
+        check(case["kernels"] or case["dtype"] == "float32", "spatial: bf16 runs the kernels")
+        passes = SPATIAL_BN_PASSES[network] if case["dtype"] == "bfloat16" else 0
         rtol = SITE_RTOL[case["dtype"]]
         for r, rank in enumerate(ranks):
             c = rank["cases"][i]
             what = f"spatial {c['case']} {c['dtype']} rank {r}"
-            check_launches(c["launches"], {k: v * SPATIAL_REPS for k, v in want.items()}, what)
+            check_launches(c["launches"], {**{k: v * SPATIAL_REPS for k, v in want.items()},
+                                           "bn_act": passes * SPATIAL_REPS}, what)
             check(c["rows"] == want_rows, f"{what}: rows {c['rows']} != {want_rows}")
             check(c["finite"] and c["pred3_in_fd_range"], f"{what}: not finite or out of range")
             check(len(c["sites"]) == split_sites(h, c["e2e"]),
@@ -2174,10 +2304,9 @@ def phase_spatial(torch, np, tk, dev, smi) -> dict:
                 rms = c["rms_vs_fp32"]
                 check(all(s <= RMS_RATIO * w for s, w in zip(rms["sharded"], rms["whole"])),
                       f"{what}: further from fp32 than the whole forward: {rms}")
-        if case["dtype"] == "float32":
-            key = f"{case['case']}_{'x'.join(map(str, case['shape'][2:]))}"
-            for name in REPLACES:
-                per_kernel[name][key] = case["launches"][name]
+        key = f"{case['case']}_{'x'.join(map(str, case['shape'][2:]))}_{case['dtype']}"
+        for name in KERNELS:
+            per_kernel[name][key] = case["launches"][name]
     check(all(any(v.values()) for v in per_kernel.values()), "spatial: a kernel never launched")
     return per_kernel
 
@@ -2188,9 +2317,8 @@ def phase_spatial(torch, np, tk, dev, smi) -> dict:
 #: sections 107 s of the 190 s their estimates add up to
 HEADLINE_BUDGET, HEADLINE_TIMEOUT = 360, 450
 HEADLINE_SECTIONS = ("kernel_gate", "train_b128", "e2e", "train_b32", "simulator")
-#: the headline's serving and end-to-end points and the kernels each forward launches
-HEADLINE_FORWARDS = {"b1": DFFNET_LAUNCHES, "b4": DFFNET_LAUNCHES, "b128": DFFNET_LAUNCHES,
-                     "e2e": E2E_LAUNCHES}
+#: the headline's serving and end-to-end points and the network each forwards
+HEADLINE_FORWARDS = {"b1": "dffnet", "b4": "dffnet", "b128": "dffnet", "e2e": "e2e"}
 HEADLINE_RESULTS = ("b1_stacks_per_sec", "b4_stacks_per_sec", "b128_stacks_per_sec",
                     "train_b32_stacks_per_sec", "train_b128_remat_stacks_per_sec",
                     "e2e_ms_per_stack", "simulator_scenes_per_sec")
@@ -2229,13 +2357,13 @@ def phase_headline(torch, smi) -> dict:
     check(not [k for k in last if k.endswith("_error")] and "skipped_sections" not in last,
           "headline: a section failed or was skipped")
     by_name = {d["detail"]: d for d in details}
-    launches = dict.fromkeys(REPLACES, 0)
-    for point, per_forward in HEADLINE_FORWARDS.items():
+    launches = dict.fromkeys(KERNELS, 0)
+    for point, network in HEADLINE_FORWARDS.items():
         d = by_name[point]
-        check_launches(d["launches"], {k: v * d["forwards"] for k, v in per_forward.items()},
+        check_launches(d["launches"], want_launches(network, d["dtype"], d["forwards"]),
                        f"headline {point}")
-        for k, v in d["launches"].items():
-            launches[k] += v
+        for k in KERNELS:
+            launches[k] += d["launches"][k]
     for point in ("train_b128_remat", "train_b32", "simulator"):
         check_launches(by_name[point]["launches"], {}, f"headline {point}")
     check(sum(d["detail"] == "section" for d in details) == len(HEADLINE_SECTIONS),
@@ -2288,6 +2416,7 @@ def main() -> int:
 
     # 3. each kernel against its twin on the card
     path_rows = phase_kernels(torch, tk, dev)
+    path_rows["bn_act"] = bn_act_rows(torch, tk, dev)
 
     # 4. DFFNet: goldens through the GPU forward, kernels included; on the
     # default graph, and through the packed one whatever the default
@@ -2320,7 +2449,7 @@ def main() -> int:
         with torch.inference_mode():
             o = net(fs.to(dev, dtype), fd.to(dev))
         torch.cuda.synchronize()
-        check_launches(tk.launches, DFFNET_LAUNCHES, f"forward {dtype}")
+        check_launches(tk.launches, want_launches("dffnet", dtype), f"forward {dtype}")
         check_depth(torch, o, fd, dtype, (1, H, W), "forward", [1, N, H, W], dict(tk.launches))
         outs[dtype] = [t.float().cpu() for t in o]
     cpu_net = load_params_auto(0, device="cpu")
@@ -2336,20 +2465,20 @@ def main() -> int:
     check(max(cpu_err.values()) <= FP32_ATOL, f"GPU vs CPU forward: {cpu_err}")
     check_bf16_gaps("forward_vs_cpu", bf16_rel, BF16_RTOL)
     packed_vs_plain(torch, tk, net, other, (fs.to(dev), fd.to(dev)), heads, outs,
-                    DFFNET_LAUNCHES, [1, N, H, W])
+                    "dffnet", [1, N, H, W])
 
     # 6. DFFNet serving through TimedForward; counts from this run only.  The
     # default graph at full depth, then the other graph for fewer requests.
     for model, depth in ((net, ((1, 10), (4, 5))), (other, ((1, 4), (4, 2)))):
         tk.reset_launches()
-        forwards = 0
+        want = []
         for dtype in (torch.float32, torch.bfloat16):
             for batch, requests in depth:
                 reqs = [(rng.uniform(-1, 1, (batch, N, H, W, 3)).astype(np.float32),
                          np.tile(fd.numpy(), (batch, 1))) for _ in range(requests + 2)]
-                forwards += serve(torch, TimedForward(model, dtype=dtype), reqs, smi, "serving")
-        check_launches(tk.launches, {k: v * forwards for k, v in DFFNET_LAUNCHES.items()},
-                       "serving")
+                forwards = serve(torch, TimedForward(model, dtype=dtype), reqs, smi, "serving")
+                want.append(want_launches("dffnet", dtype, forwards))
+        check_launches(tk.launches, add_launches(*want), "serving")
     del other
 
     # 7. end-to-end: goldens (seed 7, tests/test_golden_regression.py's fovs)
@@ -2386,8 +2515,8 @@ def main() -> int:
             o = e2e(fs.to(dev, dtype), fd10.to(dev), fovs.to(dev))
             motion = e2e.optical_flow_aggregation(fs.to(dev, dtype), fovs.to(dev))[1]
         torch.cuda.synchronize()
-        check_launches(tk.launches, {k: v + FLOWNET_LAUNCHES.get(k, 0)
-                                     for k, v in E2E_LAUNCHES.items()}, f"e2e {dtype}")
+        check_launches(tk.launches, add_launches(want_launches("e2e", dtype),
+                                                 want_launches("flownet", dtype)), f"e2e {dtype}")
         check_depth(torch, o[:4], fd10, dtype, (1, MH, MW), "e2e_forward", [1, 10, MH, MW],
                     dict(tk.launches))
         outs[dtype] = [t.float().cpu() for t in (*o, motion)]
@@ -2405,7 +2534,7 @@ def main() -> int:
     check(max(cpu_err.values()) <= FP32_ATOL, f"e2e GPU vs CPU forward: {cpu_err}")
     check_bf16_gaps("e2e_forward_vs_cpu", bf16_rel, BF16_RTOL)
     packed_vs_plain(torch, tk, e2e, other, (fs.to(dev), fd10.to(dev), fovs.to(dev)),
-                    names[:5], {k: v[:5] for k, v in outs.items()}, E2E_LAUNCHES,
+                    names[:5], {k: v[:5] for k, v in outs.items()}, "e2e",
                     [1, 10, MH, MW])
 
     # 9. end-to-end serving at the real-scene shape; counts from this run only.
@@ -2413,14 +2542,14 @@ def main() -> int:
     # counts go into the kernels line.
     for model, requests in ((other, 2), (e2e, 5)):
         tk.reset_launches()
-        forwards = 0
+        want = []
         for dtype in (torch.float32, torch.bfloat16):
             reqs = [(rng.uniform(-1, 1, (1, 10, EH, EW, 3)).astype(np.float32), fd10.numpy(),
                      fovs.numpy()) for _ in range(requests + 2)]
-            forwards += serve(torch, TimedForward(model, dtype=dtype), reqs, smi, "e2e_serving")
+            forwards = serve(torch, TimedForward(model, dtype=dtype), reqs, smi, "e2e_serving")
+            want.append(want_launches("e2e", dtype, forwards))
         served = dict(tk.launches)
-        check_launches(served, {k: v * forwards for k, v in E2E_LAUNCHES.items()},
-                       "e2e serving")
+        check_launches(served, add_launches(*want), "e2e serving")
 
     # 10. training: no kernel launches in any train step
     train_launches = phase_train(torch, np, tk, dev, smi)
@@ -2459,7 +2588,7 @@ def main() -> int:
                                    {path: got[name] for path, got in cli_runs.items()},
                                    library if name == "fm_conv_bn_relu" else None,
                                    spatial[name], headline[name])
-                      for name in REPLACES]})
+                      for name in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

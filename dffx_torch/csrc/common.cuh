@@ -13,6 +13,7 @@
 
 #define DFFX_DTYPE_F32 0
 #define DFFX_DTYPE_BF16 1
+#define DFFX_DTYPE_F16 2  // bn_act.cu alone
 
 namespace dffx {
 

@@ -37,7 +37,7 @@ import torch
 from torch import nn
 
 from dffx_torch.models.dffnet import DFFNet
-from dffx_torch.models.layers import (Conv3d, ConvBN3d, chain_site, ckpt_stage,
+from dffx_torch.models.layers import (Conv3d, ConvBN3d, Seq, chain_site, ckpt_stage,
                                      init_module_params)
 from dffx_torch.models.packed import PACKED_DEFAULT
 from dffx_torch.ops.kernels import (ParamCache, motion_head_conv_chain, motion_head_params,
@@ -60,13 +60,13 @@ class ResnetBlock2dOF(nn.Module):
         super().__init__()
         s = (1, stride, stride)
         self.stride = stride
-        self.conv = nn.Sequential(
+        self.conv = Seq(
             ConvBN3d(cin, cout, (1, 3, 3), stride=s, padding=(0, 1, 1)), nn.ReLU(),
             ConvBN3d(cout, cout, (1, 3, 3), padding=(0, 1, 1)))
         self.feature = Conv3d(cin, cout, 1, stride=s)
 
     def forward(self, x):
-        return torch.relu(self.feature(x) + self.conv(x))
+        return self.conv(x, z=self.feature(x), relu=True)
 
     def chain_args(self):
         """(w1, aff1, w2, aff2, w_shortcut), as ``rb_of_chain`` takes a block."""
@@ -106,7 +106,7 @@ class OFLevel(nn.Sequential):
         return chain_site(x, kernel, stock, bleed=2 * len(chain))
 
 
-class MotionHead(nn.Sequential):
+class MotionHead(Seq):
     """Motion-regression head convN (`End_to_End.py:33-61`): three (1,3,3)
     convbn + ReLU and a biased (1,3,3) conv to 3 channels, then
     ``AdaptiveAvgPool3d((10, 1, 1))``.  ``fused`` runs the chain before the

@@ -53,6 +53,7 @@ from dffx_torch.models.layers import (
     ConvBN3d,
     DeconvBN3d,
     FMModule,
+    Seq,
     ckpt_stage,
     convbn_relu,
     init_module_params,
@@ -85,20 +86,19 @@ class Hourglass(nn.Module):
     def interior(self, out, presqu: Optional[torch.Tensor], postsqu: Optional[torch.Tensor]):
         """conv2..conv5, from conv1's output to conv6's input: half the
         hourglass's resolution and below."""
-        pre = self.conv2(out)
-        pre = torch.relu(pre + postsqu) if postsqu is not None else torch.relu(pre)
+        pre = self.conv2(out, z=postsqu, relu=True)
         out = self.conv4(self.conv3(pre))
-        return torch.relu(self.conv5(out) + (presqu if presqu is not None else pre))
+        return self.conv5(out, z=presqu if presqu is not None else pre, relu=True)
 
     def forward(self, x, presqu: Optional[torch.Tensor], postsqu: Optional[torch.Tensor]):
         pre_1 = self.conv0(x)
         return self.conv6(self.interior(self.conv1(pre_1), presqu, postsqu)), pre_1
 
 
-def _dres(c_in, c_out, *, relu_last: bool) -> nn.Sequential:
+def _dres(c_in, c_out, *, relu_last: bool) -> Seq:
     mods = [ConvBN3d(c_in, c_out, 3, padding=1), nn.ReLU(),
             ConvBN3d(c_out, c_out, 3, padding=1)]
-    return nn.Sequential(*mods, nn.ReLU()) if relu_last else nn.Sequential(*mods)
+    return Seq(*mods, nn.ReLU()) if relu_last else Seq(*mods)
 
 
 class HourglassUp(nn.Module):
@@ -129,7 +129,7 @@ class HourglassUp(nn.Module):
     @staticmethod
     def _pair(d0, d1, x):
         r = d0(x)
-        return d1(r) + r
+        return d1(r, z=r)
 
     def forward(self, x):
         x8 = self._pair(self.dres8_0, self.dres8_1, avg_pool3d(x, (1, 2, 2)))
@@ -139,8 +139,8 @@ class HourglassUp(nn.Module):
         c2 = self.conv2(c1)
         c3 = self.combine2(torch.cat([self.conv3(c2), x32], dim=1))
         c4 = self.conv4(c3)
-        c8 = torch.relu(self.conv8(c4) + self.redir2(c2))
-        return torch.relu(self.conv9(c8) + self.redir1(x8))
+        c8 = self.conv8(c4, z=self.redir2(c2), relu=True)
+        return self.conv9(c8, z=self.redir1(x8), relu=True)
 
 
 class DFFNet(nn.Module):
@@ -160,10 +160,10 @@ class DFFNet(nn.Module):
         self.FM_conv1 = nn.Sequential(EFD(8, 16), SRD(16))
         self.FM_conv2 = nn.Sequential(EFD(16, 32), SRD(32))
         self.SPP_module = HourglassUp(32)
-        self.confidence = nn.Sequential(ConvBN3d(32, 32, 3, padding=1), nn.ReLU(),
-                                        Conv3d(32, 1, 3, padding=1))
-        self.dres0 = nn.Sequential(ConvBN3d(32, 64, 3, padding=1), nn.ReLU(),
-                                   ConvBN3d(64, 64, 3, padding=1), nn.ReLU())
+        self.confidence = Seq(ConvBN3d(32, 32, 3, padding=1), nn.ReLU(),
+                              Conv3d(32, 1, 3, padding=1))
+        self.dres0 = Seq(ConvBN3d(32, 64, 3, padding=1), nn.ReLU(),
+                         ConvBN3d(64, 64, 3, padding=1), nn.ReLU())
         self.deconv_1 = DeconvBN3d(64, 32)
         self.dres2 = Hourglass(32)
         self.deconv_2 = DeconvBN3d(32, 16)

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from dffx_torch.models.layers import BatchNorm3d, Conv3d, ConvBN3d, init_module_params
+from dffx_torch.models.layers import BatchNorm3d, Conv3d, ConvBN3d, Seq, init_module_params
 from dffx_torch.ops import (avg_pool3d, resize_trilinear, softmax_argmax, upsample_bilinear,
                             upsample_nearest2x)
 from dffx_torch.ops.conv import activation_format, layout_of
@@ -59,8 +59,8 @@ def convbn_2d(cin: int, cout: int, k: int, stride: int = 1) -> ConvBN3d:
     return ConvBN3d(cin, cout, (1, k, k), stride=(1, stride, stride), padding=(0, k // 2, k // 2))
 
 
-def cbr_2d(cin: int, cout: int, k: int, stride: int = 1) -> nn.Sequential:
-    return nn.Sequential(convbn_2d(cin, cout, k, stride), nn.ReLU())
+def cbr_2d(cin: int, cout: int, k: int, stride: int = 1) -> Seq:
+    return Seq(convbn_2d(cin, cout, k, stride), nn.ReLU())
 
 
 class NearestUp2x(nn.Module):
@@ -92,8 +92,8 @@ class BasicBlock(nn.Module):
                            else None)
 
     def forward(self, x):
-        y = self.conv2(self.conv1(x))
-        return torch.relu(y + (x if self.downsample is None else self.downsample(x)))
+        return self.conv2(self.conv1(x), relu=True,
+                          z=x if self.downsample is None else self.downsample(x))
 
 
 def pool_sizes(dims: Sequence[int]) -> list:
@@ -122,7 +122,7 @@ class CBRUnit(nn.Module):
 
     def __init__(self, c: int):
         super().__init__()
-        self.cbr_unit = nn.Sequential(Conv3d(c, c, 1), BatchNorm3d(c), nn.ReLU())
+        self.cbr_unit = Seq(Conv3d(c, c, 1), BatchNorm3d(c), nn.ReLU())
 
     def forward(self, x):
         return self.cbr_unit(x)
@@ -146,21 +146,21 @@ class FeatureExtraction(nn.Module):
 
     def __init__(self):
         super().__init__()
-        self.firstconv = nn.Sequential(convbn_2d(3, 16, 3, 2), nn.ReLU(),
-                                       convbn_2d(16, 16, 3), nn.ReLU(),
-                                       convbn_2d(16, 32, 3), nn.ReLU())
+        self.firstconv = Seq(convbn_2d(3, 16, 3, 2), nn.ReLU(),
+                             convbn_2d(16, 16, 3), nn.ReLU(),
+                             convbn_2d(16, 32, 3), nn.ReLU())
         widths = ((32, 32, 1), (32, 64, 2), (64, 128, 2), (128, 128, 2), (128, 128, 2))
         for i, (cin, cout, s) in enumerate(widths, start=1):
             setattr(self, f"layer{i}", nn.Sequential(BasicBlock(cin, cout, s)))
         self.pyramid_pooling = PyramidPooling(128)
         self.proj5 = cbr_2d(128, 128, 1)
-        self.upconv5 = nn.Sequential(NearestUp2x(), *cbr_2d(128, 64, 3))
+        self.upconv5 = Seq(NearestUp2x(), *cbr_2d(128, 64, 3))
         self.iconv4 = cbr_2d(192, 128, 3)
         self.proj4 = cbr_2d(128, 64, 1)
-        self.upconv4 = nn.Sequential(NearestUp2x(), *cbr_2d(128, 64, 3))
+        self.upconv4 = Seq(NearestUp2x(), *cbr_2d(128, 64, 3))
         self.iconv3 = cbr_2d(192, 128, 3)
         self.proj3 = cbr_2d(128, 32, 1)
-        self.upconv3 = nn.Sequential(NearestUp2x(), *cbr_2d(128, 32, 3))
+        self.upconv3 = Seq(NearestUp2x(), *cbr_2d(128, 32, 3))
         self.iconv2 = cbr_2d(96, 64, 3)
         self.proj2 = cbr_2d(64, 16, 1)
 
@@ -186,7 +186,7 @@ def diff_volume(f: torch.Tensor) -> torch.Tensor:
 
 class ProjFeat3d(nn.Module):
     """HSM's ``projfeat3d`` at stride 1: a 1x1x1 conv (no bias) and BN
-    (keys ``conv1``, ``bn``)."""
+    (keys ``conv1``, ``bn``); its eval BN is one pass of its own."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
@@ -208,8 +208,8 @@ class SepConv3dBlock(nn.Module):
         self.conv2 = ConvBN3d(cout, cout, 3, padding=1)
 
     def forward(self, x):
-        y = self.conv2(torch.relu(self.conv1(x)))
-        return torch.relu(y + (x if self.downsample is None else self.downsample(x)))
+        return self.conv2(self.conv1(x, relu=True), relu=True,
+                          z=x if self.downsample is None else self.downsample(x))
 
 
 class DecoderBlock(nn.Module):
@@ -223,9 +223,9 @@ class DecoderBlock(nn.Module):
     def __init__(self, cin: int, c: int, *, up: bool, pool: bool = False):
         super().__init__()
         self.convs = nn.Sequential(SepConv3dBlock(cin, c), SepConv3dBlock(c, c))
-        self.classify = nn.Sequential(ConvBN3d(c, c, 3, padding=1), nn.ReLU(),
-                                      nn.Sequential(Conv3d(c, 1, 3, padding=1, bias=True)))
-        self.up = (nn.Sequential(TrilinearUp(), ConvBN3d(c, c // 2, 3, padding=1), nn.ReLU())
+        self.classify = Seq(ConvBN3d(c, c, 3, padding=1), nn.ReLU(),
+                            nn.Sequential(Conv3d(c, 1, 3, padding=1, bias=True)))
+        self.up = (Seq(TrilinearUp(), ConvBN3d(c, c // 2, 3, padding=1), nn.ReLU())
                    if up else None)
         self.pool_convs = (nn.ModuleList(ConvBN3d(c, c, 1) for _ in range(4)) if pool
                            else None)

@@ -41,7 +41,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from dffx_torch.ops import batch_norm, batch_norm_train, bn_fused_affine, conv3d, deconv3d
+from dffx_torch.ops import batch_norm_train, bn_fused_affine, conv3d, deconv3d
+from dffx_torch.ops.norm import affine_act
 from dffx_torch.ops.conv import is_ndhwc, ndhwc_weight
 from dffx_torch.ops.halo import sharded_rows, spatial_ok
 from dffx_torch.ops.kernels import (ParamCache, fm_conv_bn_relu, fm_conv_params, rb2d_params,
@@ -169,18 +170,25 @@ def ckpt_stage(remat: bool, fn, *args):
 
 
 class BatchNorm3d(nn.BatchNorm3d):
-    """BatchNorm3d with the JAX package's numerics (``dffx_torch.ops.norm``).
+    """BatchNorm3d with the JAX package's numerics (``dffx_torch.ops.norm``),
+    and with what follows it where the caller says: ``bn(x, z=r, relu=True)``
+    is ``relu(bn(x) + r)``.
 
-    In training mode it normalises with the batch statistics, over the ranks
-    of the ``data_parallel`` group where one is set, and writes the new
-    running statistics in place, ``num_batches_tracked`` + 1
+    In eval mode ``ops/norm.py::affine_act`` applies the folded affine, the
+    add and the ReLU, in one pass where the activation allows.  In training
+    mode it normalises with the batch statistics, over the ranks of the
+    ``data_parallel`` group where one is set, and writes the new running
+    statistics in place, ``num_batches_tracked`` + 1
     (``dffx/models/layers.py::apply_bn``), except while a checkpointed stage
-    is recomputed in the backward (``ckpt_stage``)."""
+    is recomputed in the backward (``ckpt_stage``); the add and the ReLU
+    follow as ops of their own."""
 
-    def forward(self, x):
+    #: takes ``z`` and ``relu`` (``Seq``)
+    takes_act = True
+
+    def forward(self, x, *, z=None, relu: bool = False):
         if not self.training:
-            return batch_norm(x, self.running_mean, self.running_var, self.weight,
-                              self.bias, eps=self.eps)
+            return affine_act(x, *self.fused_affine(x.dtype), z=z, relu=relu)
         y, mean, var = batch_norm_train(x, self.running_mean, self.running_var,
                                         self.weight, self.bias, eps=self.eps,
                                         group=_DATA_GROUP.get())
@@ -189,43 +197,86 @@ class BatchNorm3d(nn.BatchNorm3d):
                 self.running_mean.copy_(mean)
                 self.running_var.copy_(var)
                 self.num_batches_tracked.add_(1)
-        return y
+        if z is not None:
+            y = y + z
+        return torch.relu(y) if relu else y
 
-    _affine_key = _affine = None
+    _kept_affines = None
 
-    def fused_affine(self):
-        """The fused fp32 (scale, shift) the kernels take: the same two
-        tensors from call to call until a statistic or an affine parameter
-        changes (``tensor_stamp``), so that a ``ParamCache`` can tell.  It
-        folds the running statistics, so it is for eval mode only."""
+    def fused_affine(self, dtype: torch.dtype | None = None):
+        """The fused fp32 (scale, shift) the kernels take, or with ``dtype``
+        rounded to it (what eval BN applies to an activation of that dtype):
+        the same two tensors from call to call until a statistic or an affine
+        parameter changes (``tensor_stamp``), so that a ``ParamCache`` can
+        tell.  It folds the running statistics, so it is for eval mode only."""
         if self.training:
             raise RuntimeError("fused_affine folds the running statistics: eval mode only; "
                                "in training mode the BN normalises with batch statistics")
         src = (self.weight, self.bias, self.running_mean, self.running_var)
+
+        def fold():
+            scale, shift = bn_fused_affine(*src, self.eps)
+            return (scale, shift) if dtype is None else (scale.to(dtype), shift.to(dtype))
+
         if torch.is_grad_enabled() and any(t.requires_grad for t in src):
-            return bn_fused_affine(*src, self.eps)  # part of a graph: not kept
+            return fold()  # part of a graph: not kept
+        if self._kept_affines is None:
+            self._kept_affines = {}
         key = tuple(map(tensor_stamp, src))
-        if key != self._affine_key:
-            self._affine, self._affine_key = bn_fused_affine(*src, self.eps), key
-        return self._affine
+        kept = self._kept_affines.get(dtype)
+        if kept is None or kept[0] != key:
+            kept = self._kept_affines[dtype] = (key, fold())
+        return kept[1]
 
 
-class ConvBN3d(nn.Sequential):
+class Seq(nn.Sequential):
+    """``nn.Sequential`` with the same children, indices and keys, whose
+    forward hands each ``BatchNorm3d`` (or a child that ends in one:
+    ``takes_act``) the ``nn.ReLU`` right after it, and its last child the
+    caller's ``z`` and ``relu``: ``seq(x, z=r, relu=True)`` is ``relu(seq(x)
+    + r)``.  In eval mode each such BN then runs as one pass with them
+    (``ops/norm.py::affine_act``)."""
+
+    @property
+    def takes_act(self) -> bool:
+        return getattr(self[-1], "takes_act", False)
+
+    def forward(self, x, *, z=None, relu: bool = False):
+        mods = list(self)
+        last = len(mods) - 1
+        ends_in_bn = self.takes_act
+        if (z is not None or relu) and not ends_in_bn:
+            raise TypeError(f"{type(mods[last]).__name__} takes no z or relu")
+        i = 0
+        while i <= last:
+            m = mods[i]
+            if i == last and ends_in_bn:
+                x = m(x, z=z, relu=relu)
+            elif getattr(m, "takes_act", False) and isinstance(mods[i + 1], nn.ReLU):
+                x = m(x, relu=True)
+                i += 1
+            else:
+                x = m(x)
+            i += 1
+        return x
+
+
+class ConvBN3d(Seq):
     """``convbn_3d`` = Sequential(Conv3d(bias=False), BatchNorm3d)."""
 
     def __init__(self, cin, cout, k, **conv_kw):
         super().__init__(Conv3d(cin, cout, k, **conv_kw), BatchNorm3d(cout))
 
 
-class DeconvBN3d(nn.Sequential):
+class DeconvBN3d(Seq):
     """Sequential(ConvTranspose3d(bias=False), BatchNorm3d)."""
 
     def __init__(self, cin, cout):
         super().__init__(ConvTranspose3d(cin, cout), BatchNorm3d(cout))
 
 
-def convbn_relu(cin, cout, k, **conv_kw) -> nn.Sequential:
-    return nn.Sequential(ConvBN3d(cin, cout, k, **conv_kw), nn.ReLU())
+def convbn_relu(cin, cout, k, **conv_kw) -> Seq:
+    return Seq(ConvBN3d(cin, cout, k, **conv_kw), nn.ReLU())
 
 
 class ResnetBlock2d(nn.Module):
@@ -233,12 +284,12 @@ class ResnetBlock2d(nn.Module):
 
     def __init__(self, c):
         super().__init__()
-        self.conv = nn.Sequential(
+        self.conv = Seq(
             ConvBN3d(c, c, (1, 3, 3), padding=(0, 1, 1)), nn.ReLU(),
             ConvBN3d(c, c, (1, 3, 3), padding=(0, 1, 1)))
 
     def forward(self, x):
-        return torch.relu(x + self.conv(x))
+        return self.conv(x, z=x, relu=True)
 
 
 class SRD(nn.Module):
@@ -264,11 +315,10 @@ class EFD(nn.Module):
     def __init__(self, cin, cout):
         super().__init__()
         self.stride_conv = ConvBN3d(cin, cout, 3, stride=(1, 2, 2), padding=1)
-        self.max_pooling = nn.Sequential(nn.MaxPool3d((1, 2, 2)),
-                                         ConvBN3d(cin, cout, 3, padding=1))
+        self.max_pooling = Seq(nn.MaxPool3d((1, 2, 2)), ConvBN3d(cin, cout, 3, padding=1))
 
     def forward(self, x):
-        return torch.relu(self.stride_conv(x) + self.max_pooling(x))
+        return self.max_pooling(x, z=self.stride_conv(x), relu=True)
 
 
 class FMModule(nn.Module):
@@ -286,7 +336,7 @@ class FMModule(nn.Module):
 
     def __init__(self):
         super().__init__()
-        self.Focus_extraction = nn.Sequential(
+        self.Focus_extraction = Seq(
             ConvBN3d(3, 8, (1, 9, 9), padding=(0, 8, 8), dilation=(1, 2, 2)),
             nn.ReLU(),
             SRD(8))

@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from dffx_torch.ops.conv import conv3d, is_ndhwc, layout_of
+from dffx_torch.ops.norm import affine_act
 
 #: whether ``DFFNet`` (and ``load_params_auto``) runs packed unless told
 #: otherwise, on the CPU as on the card.  Measured on an NVIDIA H100 80GB HBM3
@@ -267,8 +268,9 @@ def pack_conv_1x1(w: torch.Tensor) -> torch.Tensor:
     return _scatter(_conv_dhwio(w), _conv1x1_index_map(ci, co))
 
 
-def _affine(x: torch.Tensor, aff: Affine) -> torch.Tensor:
-    return x * aff[0] + aff[1]
+def _affine(x: torch.Tensor, aff: Affine, *, z=None, relu: bool = False) -> torch.Tensor:
+    """A packed eval BN, then ``z`` and a ReLU where given (``affine_act``)."""
+    return affine_act(x, aff[0].view(-1), aff[1].view(-1), z=z, relu=relu)
 
 
 # ---------------------------------------------------------------------------
@@ -299,7 +301,7 @@ def packed_efd(efd, xp: torch.Tensor, w_s2: torch.Tensor) -> torch.Tensor:
         mp = mp.permute(0, 4, 1, 2, 3)
     else:
         mp = xp.reshape(b, 4, c4 // 4, n, hh, wh).amax(1)
-    return torch.relu(a + efd.max_pooling[1](mp))
+    return efd.max_pooling[1](mp, z=a, relu=True)
 
 
 # ---------------------------------------------------------------------------
@@ -354,8 +356,8 @@ def packed_stage(hg, out_in: torch.Tensor, skip_packed: torch.Tensor,
     w_up, aff_up, w0, aff0, w1, w6, aff6, w_classif = params
     x = _affine(conv3d(F.pad(out_in, _PAD_DECONV), w_up), aff_up)  # packed 4c
     cat = torch.cat([x, skip_packed], dim=1)  # source-major packed 2c
-    pre_1 = torch.relu(_affine(conv3d(cat, w0, padding=1), aff0))
+    pre_1 = _affine(conv3d(cat, w0, padding=1), aff0, relu=True)
     out = conv3d(F.pad(pre_1, _PAD_S2), w1)  # natural, half the stage resolution
-    out = hg.interior(torch.relu(hg.conv1[0][1](out)), presqu, postsqu)
-    o6 = _affine(conv3d(F.pad(out, _PAD_DECONV), w6), aff6)
-    return unpack(conv3d(x + o6, w_classif))[:, 0]
+    out = hg.interior(hg.conv1[0][1](out, relu=True), presqu, postsqu)
+    x_o6 = _affine(conv3d(F.pad(out, _PAD_DECONV), w6), aff6, z=x)  # x + o6
+    return unpack(conv3d(x_o6, w_classif))[:, 0]

@@ -13,7 +13,9 @@
 * ``grid_sample_2d``            — F.grid_sample align_corners=True, zeros pad, (B, H, W, C)
 * ``softplus_argmax``           — softplus -> normalise over N -> soft-argmax
 * ``softmax_argmax``            — DFV's softmax over N -> depth and its spread
-* ``kernels``                   — the five CUDA kernels and their plain twins
+* ``kernels``                   — the CUDA kernels and their plain twins: the five
+                                  ported ones and the eval BN's one pass (``bn_act``,
+                                  which ``norm.affine_act`` sends 16-bit eval BNs to)
 * ``halo``                      — the kernels' chains H-sharded over a spatial group
 
 Every name of ``dffx.ops.__all__`` is here; the warps keep ``dffx``'s layout,

@@ -31,7 +31,7 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C signature of each kernel's entry point in the library
 SIGNATURES = {
     # x, params, y, B, N, H, W, dtype, stream
@@ -44,6 +44,8 @@ SIGNATURES = {
     "dffx_rb_of_chain": [_P] * 3 + [_I] * 8 + [_P],
     # x, params, y, B, Cin, C, N, H, W, dtype, stream
     "dffx_motion_head_conv_chain": [_P] * 3 + [_I] * 7 + [_P],
+    # x, z, y, scale, shift, numel, C, inner, ndhwc, relu, blocks, dtype, stream
+    "dffx_bn_act": [_P] * 5 + [_L, _I, _L] + [_I] * 4 + [_P],
 }
 
 

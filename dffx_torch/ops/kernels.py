@@ -14,9 +14,15 @@ Two are the FlowNetwork alignment front end's (``dffx/models/alignnet.py``):
 * ``motion_head_conv_chain`` four (1,3,3) convs 18->16->16->16->3, BN+ReLU after
                              the first three, a bias on the last
 
-Each takes and returns torch's ``(B, C, N, H, W)`` layout, fp32 or bf16
-activations; weights are torch-layout ``(Cout, Cin, kd, kh, kw)``, and eval
-BN comes folded into fp32 ``(scale, shift)`` pairs (``bn_fused_affine``).
+One more replaces no Pallas kernel: ``bn_act`` applies a 16-bit eval
+BatchNorm's folded affine, with the residual add and the ReLU after it, in one
+pass (``ops/norm.py::affine_act`` sends each eval BN of the stock layers to
+it), where ATen would make up to four passes.
+
+The five take and return torch's ``(B, C, N, H, W)`` layout, fp32 or bf16
+activations (``bn_act``: bf16 or fp16, any dense layout); weights are
+torch-layout ``(Cout, Cin, kd, kh, kw)``, and eval BN comes folded into fp32
+``(scale, shift)`` pairs (``bn_fused_affine``).
 
 Dispatch is by device.  A CPU tensor goes to the plain twin (``*_ref``), a
 CUDA tensor launches the kernel or raises; nothing falls back.  ``launches``
@@ -52,6 +58,9 @@ __all__ = [
     "rb_of_chain_ref",
     "motion_head_conv_chain",
     "motion_head_conv_chain_ref",
+    "bn_act",
+    "bn_act_ref",
+    "bn_act_layout",
     "mma_conv_layout",
     "head_conv0_layout",
     "pair_conv0_layout",
@@ -82,7 +91,7 @@ OFBlock = Tuple[torch.Tensor, Affine, torch.Tensor, Affine, torch.Tensor]
 
 #: kernel launches per wrapper since the last ``reset_launches()``
 launches = {"fm_conv_bn_relu": 0, "rb2d_residual": 0, "srd_attention_residual": 0,
-            "rb_of_chain": 0, "motion_head_conv_chain": 0}
+            "rb_of_chain": 0, "motion_head_conv_chain": 0, "bn_act": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # DFFX_DTYPE_* in csrc/common.cuh
 _KERNEL_CHANNELS = (8, 16, 32)
@@ -876,4 +885,92 @@ def motion_head_conv_chain(x: torch.Tensor, w0: torch.Tensor, aff0: Affine,
             b, cin, c, n, h, wd, _DTYPES[x.dtype], stream)
     _raise_on(err, "motion_head_conv_chain")
     launches["motion_head_conv_chain"] += 1
+    return y
+
+
+# --------------------------------------------------------------------------
+# bn_act
+# --------------------------------------------------------------------------
+
+_HALF_DTYPES = {torch.bfloat16: 1, torch.float16: 2}  # DFFX_DTYPE_* in csrc/common.cuh
+#: blocks a launch aims for on each SM (256 threads each: full occupancy)
+_BN_ACT_BLOCKS_PER_SM = 8
+
+
+def _channels_last(t: torch.Tensor) -> bool:
+    """Dense with the channel axis (1) innermost: NDHWC for a 5-D tensor."""
+    return t.permute(0, *range(2, t.dim()), 1).is_contiguous()
+
+
+def bn_act_layout(x: torch.Tensor, z: torch.Tensor | None = None) -> str | None:
+    """How ``bn_act``'s kernel reads ``x (B, C, ...)`` and the residual
+    ``z``: ``"ndhwc"`` (both dense with the channel innermost) or ``"ncdhw"``
+    (both contiguous), or None where it does not take them: another dtype
+    than bf16 or fp16, ``z`` of another shape, dtype or device, layouts that
+    differ, a tensor dense in neither.  Sizes and alignment do not matter:
+    the kernel takes any.  A tensor dense in both (size-1 axes) is read
+    NDHWC where C % 8 == 0, else NCDHW (each reading gives a value its
+    channel)."""
+    if x.dim() < 2 or x.dtype not in _HALF_DTYPES or x.numel() == 0:
+        return None
+    if z is not None and (z.shape != x.shape or z.dtype != x.dtype or z.device != x.device):
+        return None
+    ts = (x,) if z is None else (x, z)
+    last, first = all(_channels_last(t) for t in ts), all(t.is_contiguous() for t in ts)
+    if last and (x.shape[1] % 8 == 0 or not first):
+        return "ndhwc"
+    return "ncdhw" if first else None
+
+
+def bn_act_ref(x, scale, shift, z=None, relu: bool = False):
+    """Plain twin of ``bn_act``: the same fp32 arithmetic, one rounding."""
+    view = (1, -1) + (1,) * (x.dim() - 2)
+    y = (x.float() * scale.to(x.dtype).float().view(view)
+         + shift.to(x.dtype).float().view(view))
+    if z is not None:
+        y = y + z.float()
+    return (torch.relu(y) if relu else y).to(x.dtype)
+
+
+def bn_act(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+           z: torch.Tensor | None = None, relu: bool = False) -> torch.Tensor:
+    """``relu?(x * scale + shift (+ z))`` in one pass: an eval BatchNorm's
+    folded affine with the residual add and the ReLU after it.
+
+    x ``(B, C, ...)`` bf16 or fp16 and ``z`` (its shape and dtype) dense in
+    one layout (``bn_act_layout``), of any size and alignment; anything else
+    raises.  scale/shift ``(C,)``, rounded to x's dtype and widened to fp32
+    (the JAX package's eval BN); the sum is fp32 and rounded once.  Returns a
+    new tensor laid out as x."""
+    layout = bn_act_layout(x, z)
+    if layout is None:
+        raise ValueError(
+            f"bn_act takes bf16 or fp16 (B, C, ...) tensors, x and z of one shape and dtype "
+            f"and dense in one layout (channels innermost, or contiguous); got x "
+            f"{tuple(x.shape)} {x.dtype} strides "
+            f"{x.stride()}" + ("" if z is None else f", z {tuple(z.shape)} {z.dtype} strides "
+                               f"{z.stride()}"))
+    c = x.shape[1]
+    _check_param(scale, (c,), "scale")
+    _check_param(shift, (c,), "shift")
+    if x.device.type == "cpu":
+        return bn_act_ref(x, scale, shift, z, relu)
+    if x.device.type != "cuda":
+        raise _unsupported(x)
+    reads = (x, scale, shift) if z is None else (x, z, scale, shift)
+    if cuts_gradients(True, torch.is_grad_enabled(), (t.requires_grad for t in reads)):
+        raise RuntimeError("bn_act: the CUDA kernel has no backward, and its input or affine "
+                           "requires grad with grad enabled; call it under torch.no_grad() or "
+                           "inference_mode()")
+    _same_device(x, scale, shift)
+    scale, shift = scale.to(x.dtype).contiguous(), shift.to(x.dtype).contiguous()
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = _build.library().dffx_bn_act(
+            x.data_ptr(), None if z is None else z.data_ptr(), y.data_ptr(), scale.data_ptr(),
+            shift.data_ptr(), x.numel(), c, x.numel() // (x.shape[0] * c),
+            int(layout == "ndhwc"), int(relu), _sm_count(x.device) * _BN_ACT_BLOCKS_PER_SM,
+            _HALF_DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, "bn_act")
+    launches["bn_act"] += 1
     return y

@@ -2,7 +2,10 @@
 (``dffx/ops/norm.py``).
 
 * eval: normalize with the running statistics; the affine is folded in fp32,
-  cast to the activation dtype, and applied as ``x * scale + shift``;
+  cast to the activation dtype, and applied as ``x * scale + shift``
+  (``batch_norm``), or by ``affine_act`` with a residual add and a ReLU after
+  it: for a 16-bit activation outside autograd in one pass of
+  ``kernels.bn_act``, else (fp32, or autograd recording) as ATen's ops;
 * train: normalize with the biased batch variance ``E[x^2] - mean^2`` (one
   pass, fp32, or float64 for float64 activations, over every axis but C),
   and update the running statistics at momentum 0.1 with the unbiased
@@ -23,6 +26,7 @@ from typing import Tuple
 import torch
 
 from dffx_torch.parallel.distributed import all_reduce_
+from dffx_torch.utils import profiling
 
 EPS = 1e-5
 MOMENTUM = 0.1  # torch default: new = (1 - m) * old + m * batch
@@ -38,12 +42,48 @@ def bn_fused_affine(weight, bias, mean, var, eps: float = EPS
     return scale, shift
 
 
+def _apply_affine(x: torch.Tensor, scale, shift) -> torch.Tensor:
+    """``x * scale + shift`` over channel dim 1, both cast to x's dtype."""
+    view = (1, -1) + (1,) * (x.dim() - 2)
+    return x * scale.to(x.dtype).view(view) + shift.to(x.dtype).view(view)
+
+
 def batch_norm(x: torch.Tensor, mean, var, weight, bias, *, eps: float = EPS
                ) -> torch.Tensor:
     """Normalize ``x (B, C, ...)`` with given running statistics."""
-    scale, shift = bn_fused_affine(weight, bias, mean, var, eps)
-    view = (1, -1) + (1,) * (x.dim() - 2)
-    return x * scale.to(x.dtype).view(view) + shift.to(x.dtype).view(view)
+    return _apply_affine(x, *bn_fused_affine(weight, bias, mean, var, eps))
+
+
+def takes_pass(x: torch.Tensor, scale, shift, z=None) -> bool:
+    """Whether ``affine_act`` applies an eval BN in ``kernels.bn_act``'s one
+    pass: a 16-bit activation, and no autograd recording (the pass has no
+    backward).  There is no other case: ``bn_act`` takes every dense layout
+    and raises on what it cannot read."""
+    reads = (x, scale, shift) if z is None else (x, scale, shift, z)
+    return (x.dtype in (torch.bfloat16, torch.float16)
+            and not (torch.is_grad_enabled() and any(t.requires_grad for t in reads)))
+
+
+def affine_act(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, *, z=None,
+               relu: bool = False) -> torch.Tensor:
+    """An eval BatchNorm's folded affine ``(scale, shift)``, ``(C,)`` each,
+    then a residual ``z`` and a ReLU where given: ``relu?(x * scale + shift
+    (+ z))``.  Where ``takes_pass`` says so, ``kernels.bn_act`` (a CUDA
+    kernel, or its twin on the CPU) computes it in fp32 with one rounding and
+    the counter ``stock.bn_fused`` adds one; otherwise (fp32, or autograd
+    recording) ATen's ops do, each rounding to x's dtype as ``batch_norm``
+    does (bit for bit its result in fp32), and ``stock.bn_aten`` adds one."""
+    if takes_pass(x, scale, shift, z):
+        from dffx_torch.ops import kernels  # kernels imports this module
+
+        y = kernels.bn_act(x, scale, shift, z, relu)
+        profiling.count("stock.bn_fused")
+        return y
+    profiling.count("stock.bn_aten")
+    y = _apply_affine(x, scale, shift)
+    if z is not None:
+        y = y + z
+    return torch.relu(y) if relu else y
 
 
 class _SumOverRanks(torch.autograd.Function):

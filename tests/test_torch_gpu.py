@@ -17,9 +17,10 @@ from dffx_torch.ops import kernels as tk
 pytestmark = pytest.mark.gpu
 SHAPES = [(1, 3, 64, 96), (2, 1, 40, 72), (1, 2, 7, 5)]  # (b, n, h, w); ragged edges
 DFFNET_KERNELS = ("fm_conv_bn_relu", "rb2d_residual", "srd_attention_residual")
-#: launches of each kernel in one E2E forward: three pyramid chains, one head
+#: launches of each kernel in one fp32 E2E forward: three pyramid chains, one
+#: head, and no BN pass (fp32 eval BN stays on ATen's ops)
 E2E_LAUNCHES = {"fm_conv_bn_relu": 1, "rb2d_residual": 1, "srd_attention_residual": 1,
-                "rb_of_chain": 3, "motion_head_conv_chain": 1}
+                "rb_of_chain": 3, "motion_head_conv_chain": 1, "bn_act": 0}
 CHAINS = [((3, 8), (8, 8)), ((16, 16),), ((32, 32),)]
 #: bf16 pred3 of a DFFNet forward kept NDHWC against the same forward kept
 #: NCDHW, over pred3's largest value: 2^-5, four bf16 units in the last place
@@ -561,6 +562,10 @@ def _kernel_call(rng, name, dev):
         x, blocks = _chain_args(rng, 1, 2, 16, 24, CHAINS[1], dev)
         return (lambda x, ws: tk.rb_of_chain(x, [(blocks[0][0], *blocks[0][1:4], ws)]),
                 [x, blocks[0][4]], 1)
+    if name == "bn_act":
+        x = _act(rng, (1, 16, 2, 16, 24), dev).bfloat16().contiguous(
+            memory_format=torch.channels_last_3d)
+        return tk.bn_act, [x, *(v.bfloat16() for v in _aff(rng, 16, dev))], 1
     return tk.motion_head_conv_chain, list(_head_args(rng, 1, 2, 16, 24, dev)), 7
 
 
@@ -681,12 +686,15 @@ def test_kept_packed_weights_follow_their_sources(cuda, rng):
 def test_bf16_eval_forward_runs_every_stock_conv_ndhwc(cuda, rng, packed, monkeypatch):
     """A bf16 eval DFFNet forward hands cuDNN NDHWC activations alone: every
     stock conv and deconv counts ``stock.conv_ndhwc``, none
-    ``stock.conv_ncdhw``, no cuDNN layout transpose runs, and ``pred3`` is
-    that of the same forward kept NCDHW, within ``PRED3_NCDHW_RTOL``."""
+    ``stock.conv_ncdhw``, no cuDNN layout transpose runs, every eval BN
+    counts ``stock.bn_fused`` (the one pass) and none ``stock.bn_aten``, and
+    ``pred3`` is that of the same forward kept NCDHW, within
+    ``PRED3_NCDHW_RTOL``."""
     import torch.nn.functional as F
 
     from dffx_torch.eval import load_params_auto
     from dffx_torch.models import dffnet
+    from dffx_torch.models.layers import BatchNorm3d
     from dffx_torch.utils import profiling
 
     fs = torch.from_numpy(rng.uniform(-1, 1, (2, 10, 64, 96, 3)).astype(np.float32))
@@ -697,19 +705,30 @@ def test_bf16_eval_forward_runs_every_stock_conv_ndhwc(cuda, rng, packed, monkey
     for name in ("conv3d", "conv2d", "conv_transpose3d", "linear"):
         monkeypatch.setattr(F, name, lambda *a, _fn=getattr(F, name), **k:
                             convs.append(_fn) or _fn(*a, **k))
+    bns = []
+    hooks = [m.register_forward_hook(lambda *a: bns.append(1)) for m in net.modules()
+             if isinstance(m, BatchNorm3d)]
     with torch.inference_mode():
         net(fs, fd)  # cuDNN's choice, the kept weights
         convs.clear()
+        bns.clear()
         profiling.reset()
         with profiling.collect():
             got = net(fs, fd)
-        counted, calls = profiling.counters(), len(convs)
+        counted, calls, bn_calls = profiling.counters(), len(convs), len(bns)
+        for h in hooks:
+            h.remove()
         profiling.reset()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             net(fs, fd)
             torch.cuda.synchronize()
         profiling.reset()
-        assert counted == {"stock.conv_ndhwc": calls} and calls == 65
+        by_layout = {k: v for k, v in counted.items() if k.startswith("stock.conv")}
+        assert by_layout == {"stock.conv_ndhwc": calls} and calls == 65
+        # every eval BN outside the FM kernels takes the one pass: the BN
+        # modules called, and the packed stage's three packed affines
+        assert {k: v for k, v in counted.items() if k.startswith("stock.bn")} == {
+            "stock.bn_fused": bn_calls + (3 if packed else 0)} == {"stock.bn_fused": 55}
         transposes = [e.key for e in prof.key_averages()
                       if "nchwToNhwc" in e.key or "nhwcToNchw" in e.key]
         assert not transposes, transposes
@@ -718,6 +737,99 @@ def test_bf16_eval_forward_runs_every_stock_conv_ndhwc(cuda, rng, packed, monkey
         want = plain(fs, fd)
     gap = (got[3].float() - want[3].float()).abs().max().item()
     assert gap <= PRED3_NCDHW_RTOL * want[3].float().abs().max().item(), gap
+
+
+#: activations of the eval BN pass at the cells' shapes, b2: DFFNet's at 10 x
+#: 384 x 576 plain NDHWC (16ch @ 1/2, 32ch @ 1/4) and packed NDHWC (the full
+#: resolution's 8 channels as 32 @ 1/2), and FlowNetwork's NCDHW 8ch at 608 x
+#: 1088 and 16ch @ 1/2
+BN_ACT_SHAPES = {"dffnet_half": ((2, 16, 10, 192, 288), "ndhwc"),
+                 "dffnet_quarter": ((2, 32, 10, 96, 144), "ndhwc"),
+                 "dffnet_packed": ((2, 32, 10, 192, 288), "ndhwc"),
+                 "flownet_full": ((1, 8, 10, 608, 1088), "ncdhw"),
+                 "flownet_half": ((1, 16, 10, 304, 544), "ncdhw")}
+
+
+@pytest.mark.parametrize("relu", [False, True], ids=["no_relu", "relu"])
+@pytest.mark.parametrize("residual", [False, True], ids=["no_z", "z"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("where", list(BN_ACT_SHAPES))
+def test_bn_act_matches_twin(cuda, where, dtype, residual, relu):
+    """The eval BN's pass is its twin bit for bit: the same fp32 arithmetic
+    (an exact product, then the shift and z added) and one rounding."""
+    shape, layout = BN_ACT_SHAPES[where]
+    fmt = torch.channels_last_3d if layout == "ndhwc" else torch.contiguous_format
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = (2 * torch.randn(shape, generator=gen, device=cuda)).to(dtype).contiguous(
+        memory_format=fmt)
+    z = (torch.randn(shape, generator=gen, device=cuda).to(dtype).contiguous(memory_format=fmt)
+         if residual else None)
+    scale, shift = (v.to(dtype) for v in _aff(np.random.default_rng(1), shape[1], cuda))
+    assert tk.bn_act_layout(x, z) == layout
+    got = tk.bn_act(x, scale, shift, z, relu)
+    torch.cuda.synchronize()
+    assert tk.launches["bn_act"] == 1
+    assert got.dtype == dtype and got.stride() == x.stride()
+    assert torch.equal(got, tk.bn_act_ref(x, scale, shift, z, relu))
+
+
+#: dense tensors off the two vectorised paths, which the general path takes:
+#: (shape, layout, offset in values from a 16-byte boundary)
+BN_ACT_GENERAL = {"ndhwc_c12": ((2, 12, 5, 40, 72), "ndhwc", 0),
+                  "ndhwc_c6152": ((1, 6152, 1, 2, 3), "ndhwc", 0),  # beyond shared memory
+                  "ncdhw_odd": ((1, 16, 10, 45, 101), "ncdhw", 0),  # FlowNetwork at 180 x 404
+                  "ncdhw_tail": ((1, 3, 1, 1, 5), "ncdhw", 0),  # 15 values: a partial vector
+                  "ncdhw_misaligned": ((1, 16, 10, 152, 272), "ncdhw", 1),
+                  "ndhwc_misaligned": ((2, 16, 5, 40, 72), "ndhwc", 3)}
+
+
+@pytest.mark.parametrize("residual", [False, True], ids=["no_z", "z"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("where", list(BN_ACT_GENERAL))
+def test_bn_act_takes_every_dense_layout(cuda, where, dtype, residual):
+    """Channels that change inside a vector, more channels than shared memory
+    holds, a partial last vector, a view off 16-byte alignment: the kernel's
+    general path, its twin bit for bit."""
+    shape, layout, offset = BN_ACT_GENERAL[where]
+    fmt = torch.channels_last_3d if layout == "ndhwc" else torch.contiguous_format
+    gen = torch.Generator(device=cuda).manual_seed(2)
+
+    def draw():
+        t = (2 * torch.randn(shape, generator=gen, device=cuda)).to(dtype).contiguous(
+            memory_format=fmt)
+        if not offset:
+            return t
+        flat = torch.empty(t.numel() + offset, dtype=dtype, device=cuda)
+        return flat[offset:].as_strided(t.shape, t.stride()).copy_(t)
+
+    x, z = draw(), (draw() if residual else None)
+    assert x.data_ptr() % 16 == 2 * offset
+    scale, shift = (v.to(dtype) for v in _aff(np.random.default_rng(3), shape[1], cuda))
+    assert tk.bn_act_layout(x, z) == layout
+    got = tk.bn_act(x, scale, shift, z, True)
+    torch.cuda.synchronize()
+    assert tk.launches["bn_act"] == 1
+    assert got.dtype == dtype and got.stride() == x.stride()
+    assert torch.equal(got, tk.bn_act_ref(x, scale, shift, z, True))
+
+
+def test_bn_act_refuses_what_it_does_not_take(cuda, rng):
+    """On the card the wrapper raises where no layout holds the tensors: no
+    launch, no fallback."""
+    cl = torch.channels_last_3d
+    x = _act(rng, (1, 16, 2, 16, 24), cuda).bfloat16()
+    scale, shift = (v.bfloat16() for v in _aff(rng, 16, cuda))
+    cases = {"mixed layouts": (x.contiguous(memory_format=cl), x),
+             "not dense": (x[:, :, :, :8], None),
+             "z in another dtype": (x, x.half()),
+             "fp32": (x.float(), None)}
+    for what, (a, z) in cases.items():
+        with pytest.raises(ValueError, match="bn_act takes"):
+            tk.bn_act(a, scale[:a.shape[1]], shift[:a.shape[1]], z)
+    assert tk.launches["bn_act"] == 0
+    for n in range(1, 4):
+        tk.bn_act(x, scale, shift, relu=True)
+        assert tk.launches["bn_act"] == n
 
 
 # --- the command lines and the prefetch on the card ---------------------------
@@ -942,7 +1054,7 @@ def test_spatial_chain_sites_on_the_card(cuda, tmp_path):
         for site, ref in want.items():
             for how in ("kernels", "stock"):
                 torch.testing.assert_close(r[f"{site}_{how}"], ref, rtol=0, atol=1e-4)
-        assert r["launches_kernels"] == dict.fromkeys(E2E_LAUNCHES, 1)
+        assert r["launches_kernels"] == {**dict.fromkeys(E2E_LAUNCHES, 1), "bn_act": 0}
         assert r["launches_stock"] == dict.fromkeys(E2E_LAUNCHES, 0)
         assert r["traffic"]["host_staged"] > 0  # gloo carries host tensors
 
@@ -972,8 +1084,9 @@ def test_dfv_bf16_on_the_card_matches_the_reference(cuda):
     (``tests/dfv_reference.py``) on the card, under the limits of the
     cell ``dfv-ddff12.batch-b32`` (rms gap over the reference's rms); its
     weights drawn as the benchmark draws them (MSRA convs but the head's
-    last, U(+-1 / (4 sqrt(fan_in))); BatchNorm away from the identity).  No
-    hand kernel launches."""
+    last, U(+-1 / (4 sqrt(fan_in))); BatchNorm away from the identity).  None
+    of the five hand kernels launches; each of its 61 eval BNs is one launch
+    of the BN pass."""
     import json
     from pathlib import Path
 
@@ -1002,7 +1115,7 @@ def test_dfv_bf16_on_the_card_matches_the_reference(cuda):
     got = TimedForward(net, dtype=torch.bfloat16)(fs, fd)
     with torch.inference_mode():
         want = ref(fs.float(), fd)
-    assert sum(tk.launches.values()) == 0
+    assert tk.launches == {**dict.fromkeys(tk.launches, 0), "bn_act": 61}
     assert len(got) == len(want) == 3
     for name, o, w in zip(("pred3", "std3", "cost3"), got, want):
         assert o.dtype == torch.bfloat16

@@ -239,9 +239,10 @@ SMALL_GATE = tuple((name, min(b, 2), c, n, 16, 24) for name, b, c, n, _, _ in hl
 GATE_CHECKS = 2 * len(hl.GATE_CASES)
 
 
-def test_kernel_gate_passes_a_right_kernel_and_names_a_wrong_one(monkeypatch):
+def test_kernel_gate_passes_a_right_kernel_and_names_a_wrong_one(smoke, monkeypatch):
     names = {name for name, *_ in hl.GATE_CASES}
-    assert names == set(tk.launches)
+    # the gate runs the five that replace a Pallas kernel in fp32 and bf16
+    assert names == set(smoke.PORTED) and set(smoke.KERNELS) == set(tk.launches)
     for name in names:
         monkeypatch.setattr(tk, name, _fp32_kernel(getattr(tk, f"{name}_ref")))
     got = hl.kernel_gate(device=CPU, cases=SMALL_GATE)
@@ -356,12 +357,12 @@ def smoke():
 
 def _canned_headline(smoke, fault: str):
     """What ``python3 -m dffx_torch.headline`` prints on a card, with ``fault``."""
-    zero = dict.fromkeys(smoke.REPLACES, 0)
-    per = {"b1": (smoke.DFFNET_LAUNCHES, 106), "b4": (smoke.DFFNET_LAUNCHES, 92),
-           "b128": (smoke.DFFNET_LAUNCHES, 42), "e2e": (smoke.E2E_LAUNCHES, 36)}
-    details = [{"detail": p, "forwards": n, "launches": {**zero, **{k: v * n for k, v in
-                                                                    want.items()}}}
-               for p, (want, n) in per.items()]
+    zero = dict.fromkeys(smoke.KERNELS, 0)
+    per = {"b1": ("dffnet", 106), "b4": ("dffnet", 92), "b128": ("dffnet", 42),
+           "e2e": ("e2e", 36)}
+    details = [{"detail": p, "dtype": "bfloat16", "forwards": n,
+                "launches": {**zero, **smoke.want_launches(net, "bfloat16", n)}}
+               for p, (net, n) in per.items()]
     details += [{"detail": p, "steps": 25, "launches": dict(zero)}
                 for p in ("train_b128_remat", "train_b32", "simulator")]
     details += [{"detail": "section", "name": n} for n in smoke.HEADLINE_SECTIONS]
@@ -381,6 +382,8 @@ def _canned_headline(smoke, fault: str):
         del last["b128_stacks_per_sec"]
     elif fault == "serving_launches":
         details[2]["launches"]["srd_attention_residual"] -= 1
+    elif fault == "bn_act_launches":
+        details[3]["launches"]["bn_act"] += 1
     elif fault == "train_launches":
         details[4]["launches"]["rb2d_residual"] = 1
     records = [{**last, "partial": True}, last]
@@ -390,7 +393,7 @@ def _canned_headline(smoke, fault: str):
 
 @pytest.mark.parametrize("fault", ["none", "partial_last", "skipped", "gate_failed",
                                    "section_error", "missing_b128", "serving_launches",
-                                   "train_launches"])
+                                   "bn_act_launches", "train_launches"])
 def test_chip_smoke_headline_phase_checks(smoke, monkeypatch, capsys, fault):
     """The phase passes the headline's output only when the last record is
     complete, has every point and section, a passed gate and no error, and
@@ -407,7 +410,7 @@ def test_chip_smoke_headline_phase_checks(smoke, monkeypatch, capsys, fault):
         got = smoke.phase_headline(torch, "NVIDIA H100 80GB HBM3, 700.00 W")
         assert got == {"fm_conv_bn_relu": 276, "rb2d_residual": 276,
                        "srd_attention_residual": 276, "rb_of_chain": 108,
-                       "motion_head_conv_chain": 36}
+                       "motion_head_conv_chain": 36, "bn_act": 55 * 240 + 65 * 36}
     else:
         with pytest.raises(RuntimeError, match="headline"):
             smoke.phase_headline(torch, "NVIDIA H100 80GB HBM3, 700.00 W")

@@ -484,7 +484,8 @@ def test_ndhwc_forward_matches_ncdhw(params, rng, packed, monkeypatch):
 def test_bf16_eval_forward_counts_its_stock_convs_by_layout(e2e):
     """A bf16 eval forward: DFFNet's 65 stock convs and deconvs (the FM
     chain's five are kernels on the card) run on NDHWC inputs; FlowNetwork's
-    14 stay NCDHW."""
+    14 stay NCDHW.  Every eval BN outside the kernels (DFFNet's 55,
+    FlowNetwork's 10 more) takes the one pass (``stock.bn_fused``)."""
     from dffx_torch.utils import profiling
 
     n = 10 if e2e else 4
@@ -499,4 +500,7 @@ def test_bf16_eval_forward_counts_its_stock_convs_by_layout(e2e):
         counted = profiling.counters()
     finally:
         profiling.reset()
-    assert counted == {"stock.conv_ndhwc": 65, **({"stock.conv_ncdhw": 14} if e2e else {})}
+    convs = {k: v for k, v in counted.items() if k.startswith("stock.conv")}
+    assert convs == {"stock.conv_ndhwc": 65, **({"stock.conv_ncdhw": 14} if e2e else {})}
+    assert {k: v for k, v in counted.items() if k.startswith("stock.bn")} == {
+        "stock.bn_fused": 65 if e2e else 55}
