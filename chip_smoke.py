@@ -1304,7 +1304,7 @@ def phase_real_scenes_cli(torch, np, tk, dev, smi) -> dict:
         pngs = sorted(p.name for p in (Path(tmp) / "out" / "warped_result" / "0").iterdir())
         sample = RealScenesDataset(f"{tmp}/scenes")[0]
     check_launches(launched, E2E_LAUNCHES, "real_scenes_cli")
-    net = load_params_auto(0, device=dev, e2e=True)
+    net = load_params_auto(0, device=dev, arch="e2e")
     with torch.inference_mode():
         o = net(*(torch.from_numpy(sample[k][None]).to(dev)
                   for k in ("fs", "focus_dists", "fovs")))
@@ -1975,7 +1975,7 @@ def rank_spatial(torch, np, dev, spec) -> dict:
 
     cases = []
     for name, e2e, (h, w), dtypes, kernels in SPATIAL_CASES:
-        model = load_params_auto(0, device=dev, e2e=e2e)
+        model = load_params_auto(0, device=dev, arch="e2e" if e2e else "dffnet")
         args = [rng.uniform(-1, 1, (1, 10, h, w, 3)).astype(np.float32), fd]
         args += [fovs] if e2e else []
         ref32 = None
@@ -2484,7 +2484,7 @@ def main() -> int:
     # 7. end-to-end: goldens (seed 7, tests/test_golden_regression.py's fovs)
     fovs_np = np.linspace(1.0, 1.02, 10, dtype=np.float32)[None]
     for packed in golden_graphs:
-        e2e = load_params_auto(7, device=dev, e2e=True, packed=packed)
+        e2e = load_params_auto(7, device=dev, packed=packed, arch="e2e")
         tk.reset_launches()
         with torch.inference_mode():
             o = e2e(*(torch.from_numpy(a).to(dev) for a in (fs_np, fd_np, fovs_np)))
@@ -2500,9 +2500,9 @@ def main() -> int:
         check_launches(tk.launches, E2E_LAUNCHES, "e2e goldens")
 
     # 8. end-to-end forward against the CPU at a medium shape; bf16 against fp32
-    e2e = load_params_auto(0, device=dev, e2e=True)
-    other = load_params_auto(0, device=dev, e2e=True, packed=not PACKED_DEFAULT)
-    cpu_e2e = load_params_auto(0, device="cpu", e2e=True)
+    e2e = load_params_auto(0, device=dev, arch="e2e")
+    other = load_params_auto(0, device=dev, packed=not PACKED_DEFAULT, arch="e2e")
+    cpu_e2e = load_params_auto(0, device="cpu", arch="e2e")
     fd10 = torch.from_numpy((1 / np.linspace(0.2, 3.0, 10, dtype=np.float32))[None])
     fovs = torch.from_numpy((1.0 + np.linspace(0.0, 0.03, 10)
                              + rng.uniform(-0.005, 0.005, 10)).astype(np.float32)[None])

@@ -46,12 +46,12 @@ NETWORKS = {
 }
 
 
-def load_params_auto(source: Union[str, int], *, device="cuda", e2e: bool = False,
-                     packed: bool = PACKED_DEFAULT, arch: str = "dffnet") -> nn.Module:
+def load_params_auto(source: Union[str, int], *, device="cuda", packed: bool = PACKED_DEFAULT,
+                     arch: str = "dffnet") -> nn.Module:
     """The eval-mode network ``NETWORKS[arch]`` on ``device``: ``Network``
-    (depth only, the default), ``E2ENetwork`` (alignment + depth; ``e2e=True``
-    is the older spelling of ``arch="e2e"``) or ``DFV`` (depth and its
-    spread).  The weights come from a reference ``.pth`` path (a torch state
+    (depth only, the default), ``E2ENetwork`` (alignment + depth) or
+    ``DFV`` (depth and its spread).  The weights come from a reference
+    ``.pth`` path (a torch state
     dict, or one under a training checkpoint's ``state_dict`` key, as DFV's
     are saved), from any other path as a checkpoint the JAX package wrote
     (``dffx.checkpoint.save``, format v2: a ``.ckpt`` of the train CLI, whose
@@ -61,9 +61,6 @@ def load_params_auto(source: Union[str, int], *, device="cuda", e2e: bool = Fals
     graph the JAX package serves; the weights are the same either way.  The
     default device is the GPU: without one this raises, and the CPU is used
     only when asked for (``device="cpu"``)."""
-    if e2e and arch != "dffnet":
-        raise ValueError(f"e2e=True is arch='e2e'; it cannot be given with arch={arch!r}")
-    arch = "e2e" if e2e else arch
     if arch not in NETWORKS:
         raise ValueError(f"arch must be one of {sorted(NETWORKS)}, got {arch!r}")
     served = NETWORKS[arch]

@@ -69,7 +69,7 @@ def _run(args, device, spatial_pallas) -> None:
     cv2 = require("cv2", f"the warped PNGs of {USER}")
     source = checkpoint_or_seed(args.checkpoint, allow_random=args.allow_random_init)
     dtype = torch.float32 if args.dtype == "fp32" else torch.bfloat16
-    fwd = TimedForward(load_params_auto(source, device=device, e2e=True), dtype=dtype,
+    fwd = TimedForward(load_params_auto(source, device=device, arch="e2e"), dtype=dtype,
                        spatial=args.spatial, spatial_pallas=spatial_pallas)
     dataset = RealScenesDataset(root=args.data_root)
     primary = distributed.is_primary()

@@ -199,9 +199,9 @@ def timed_rates(fn, args, iters: int, repeats: int, items: int, window: float = 
     return iters, [items / device_loop_time(fn, *args, iters=iters) for _ in range(repeats)]
 
 
-def serving_net(packed: bool, dev, e2e: bool = False):
-    """The seed-``SEED`` eval network of the given graph on ``dev``."""
-    return load_params_auto(SEED, device=dev, e2e=e2e, packed=packed)
+def serving_net(packed: bool, dev, arch: str = "dffnet"):
+    """The seed-``SEED`` eval network ``arch`` of the given graph on ``dev``."""
+    return load_params_auto(SEED, device=dev, packed=packed, arch=arch)
 
 
 def _serving_point(nets: dict, b: int, iters: int, graphs, shape, dtype, dev, gen,
@@ -338,7 +338,7 @@ def bench_e2e(*, device="cuda", dtype=torch.bfloat16, shape=(N, EH, EW), iters: 
     dev = torch.device(device)
     t0 = time.monotonic()
     fs, fd, fovs = e2e_inputs(shape, dtype, dev, generator(dev))
-    net = Counted(serving_net(True, dev, e2e=True))
+    net = Counted(serving_net(True, dev, arch="e2e"))
     tk.reset_launches()
     _reset_peak(dev)
     with torch.inference_mode():

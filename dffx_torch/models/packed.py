@@ -46,7 +46,7 @@ from dffx_torch.ops.norm import affine_act
 
 #: whether ``DFFNet`` (and ``load_params_auto``) runs packed unless told
 #: otherwise, on the CPU as on the card.  Measured on an NVIDIA H100 80GB HBM3
-#: (700 W) with ``dffx_torch/bench.py``: packed, a DFFNet forward at 10 x 384 x
+#: (700 W) in PR 6 (``CHANGES.md``): packed, a DFFNet forward at 10 x 384 x
 #: 384 takes 16 ms against 25-27 in fp32 at batch 1 and 21 against 60-61 in
 #: bf16 at batch 4; an end-to-end forward at 10 x 608 x 1088 takes 81-82 ms
 #: against 121-122 in fp32 and 38 against 83-84 in bf16 (``PERF.md``)

@@ -86,7 +86,7 @@ def enabled() -> bool:
 @contextlib.contextmanager
 def collect():
     """``with profiling.collect(): ...`` records spans and counters in the
-    block without a profiler (tests, ``bench.py``); the totals stay until
+    block without a profiler (tests, ``chip_smoke.py``); the totals stay until
     ``reset()``."""
     global _collecting
     with _lock:

@@ -186,7 +186,7 @@ def test_e2e_forward_matches_stored_goldens():
     fs = rng.uniform(-1, 1, (1, 10, 64, 96, 3)).astype(np.float32)
     fd = (1 / np.linspace(0.2, 3.0, 10, dtype=np.float32))[None]
     fovs = np.linspace(1.0, 1.02, 10, dtype=np.float32)[None]
-    net = load_params_auto(7, device="cpu", e2e=True)
+    net = load_params_auto(7, device="cpu", arch="e2e")
     with torch.no_grad():
         outs = net(*(torch.from_numpy(a) for a in (fs, fd, fovs)))
     ref = np.load(GOLDEN)
@@ -219,15 +219,15 @@ def test_load_params_auto_e2e_from_pth_and_seed(tmp_path, params):
     path = tmp_path / "check_point.pth"
     torch.save({f"module.{k}": v for k, v in net.state_dict().items()}, path)
     assert set(load_torch_checkpoint(str(path))) == set(net.state_dict())
-    loaded = load_params_auto(str(path), device="cpu", e2e=True)
+    loaded = load_params_auto(str(path), device="cpu", arch="e2e")
     assert isinstance(loaded, E2ENetwork) and not loaded.training
     for k, v in net.state_dict().items():
         assert torch.equal(loaded.state_dict()[k], v), k
-    assert isinstance(load_params_auto(0, device="cpu", e2e=True), E2ENetwork)
+    assert isinstance(load_params_auto(0, device="cpu", arch="e2e"), E2ENetwork)
 
 
 def test_timed_forward_passes_fovs(rng):
-    net = load_params_auto(0, device="cpu", e2e=True)
+    net = load_params_auto(0, device="cpu", arch="e2e")
     tf = TimedForward(net)
     fs = rng.uniform(-1, 1, (1, N, 32, 32, 3)).astype(np.float32)
     fd = np.linspace(0.1, 1.0, N, dtype=np.float32)[None]

@@ -182,7 +182,7 @@ def test_gate_sends_recording_and_fp32_to_aten():
 #: network -> load_params_auto's arguments and the stack it serves (B, N, H, W)
 NETWORKS = {"dffnet_packed": ({"packed": True}, (1, 4, 64, 96)),
             "dffnet_unpacked": ({"packed": False}, (1, 4, 64, 96)),
-            "e2e": ({"e2e": True}, (1, 10, 64, 96)),
+            "e2e": ({"arch": "e2e"}, (1, 10, 64, 96)),
             "dfv": ({"arch": "dfv"}, (1, 5, 64, 96))}
 #: eval BNs a forward applies: DFFNet's 55 outside the FM kernels,
 #: FlowNetwork's 10 on stock layers, DFV's 61

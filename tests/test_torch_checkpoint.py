@@ -113,4 +113,4 @@ def test_a_missing_key_raises(tmp_path, params):
     with pytest.raises(ValueError, match="1 missing.*DFF_net.dres4.conv6.0.weight"):
         load_params_auto(short, device="cpu")
     with pytest.raises(ValueError, match="missing"):  # a DFFNet checkpoint is no E2E one
-        load_params_auto(path, device="cpu", e2e=True)
+        load_params_auto(path, device="cpu", arch="e2e")

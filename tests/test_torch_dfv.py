@@ -159,8 +159,8 @@ def test_load_params_auto_defaults_stay():
     net = load_params_auto(0, arch="dfv", device="cpu")
     assert isinstance(net, DFV) and not net.training
     assert sum(p.numel() for p in net.parameters()) == 5_291_124
-    with pytest.raises(ValueError):
-        load_params_auto(0, arch="dfv", e2e=True, device="cpu")
+    with pytest.raises(TypeError):
+        load_params_auto(0, device="cpu", e2e=True)
     with pytest.raises(ValueError):
         load_params_auto(0, arch="psmnet", device="cpu")
 

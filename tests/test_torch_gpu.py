@@ -457,11 +457,11 @@ def test_e2e_network_on_the_card_matches_cpu(cuda, rng):
     fs = torch.from_numpy(rng.uniform(-1, 1, (1, 10, 64, 96, 3)).astype(np.float32))
     fd = torch.from_numpy(np.linspace(0.1, 1.5, 10, dtype=np.float32)[None])
     fovs = torch.from_numpy(np.linspace(1.0, 1.05, 10, dtype=np.float32)[None])
-    net = load_params_auto(0, device=cuda, e2e=True)
+    net = load_params_auto(0, device=cuda, arch="e2e")
     assert isinstance(net, E2ENetwork)
     with torch.inference_mode():
         got = net(fs.to(cuda), fd.to(cuda), fovs.to(cuda))
-        ref = load_params_auto(0, device="cpu", e2e=True)(fs, fd, fovs)
+        ref = load_params_auto(0, device="cpu", arch="e2e")(fs, fd, fovs)
     assert tk.launches == E2E_LAUNCHES
     for g, r in zip(got, ref):
         torch.testing.assert_close(g.cpu(), r, atol=1e-4, rtol=0)
@@ -487,7 +487,7 @@ def test_kept_parameters_follow_the_weights(cuda, rng):
     fs = torch.from_numpy(rng.uniform(-1, 1, (1, 10, 64, 96, 3)).astype(np.float32)).to(cuda)
     fd = torch.from_numpy(np.linspace(0.1, 1.5, 10, dtype=np.float32)[None]).to(cuda)
     fovs = torch.from_numpy(np.linspace(1.0, 1.05, 10, dtype=np.float32)[None]).to(cuda)
-    net, other = (load_params_auto(s, device=cuda, e2e=True) for s in (0, 1))
+    net, other = (load_params_auto(s, device=cuda, arch="e2e") for s in (0, 1))
     with torch.inference_mode():
         first, again, want = net(fs, fd, fovs), net(fs, fd, fovs), other(fs, fd, fovs)
     for a, b in zip(first, again):
@@ -503,7 +503,7 @@ def test_kept_parameters_follow_the_weights(cuda, rng):
     make_train_step(1e-3, LossConfig(), e2e=True)(state, _train_batch(rng, cuda, 1, 10, 64, 96,
                                                                       e2e=True))
     net.eval()
-    cpu = load_params_auto(1, device="cpu", e2e=True)
+    cpu = load_params_auto(1, device="cpu", arch="e2e")
     cpu.load_state_dict(net.state_dict())
     tk.reset_launches()
     with torch.inference_mode():
@@ -603,14 +603,15 @@ def test_module_forward_with_gradients_raises_on_the_card(cuda, rng):
         assert all(torch.isfinite(t).all() for t in net(fs, fd))
 
 
-@pytest.mark.parametrize("e2e", [False, True], ids=["dffnet", "e2e"])
-def test_train_mode_forward_on_the_card_launches_no_kernel(cuda, rng, e2e):
+@pytest.mark.parametrize("arch", ["dffnet", "e2e"])
+def test_train_mode_forward_on_the_card_launches_no_kernel(cuda, rng, arch):
     """In training mode every module runs on stock ops: with gradients the
     forward does not raise, launches no kernel, and the backward reaches
     every used parameter."""
     from dffx_torch.eval import load_params_auto
 
-    net = load_params_auto(0, device=cuda, e2e=e2e).train()
+    net = load_params_auto(0, device=cuda, arch=arch).train()
+    e2e = arch == "e2e"
     batch = _train_batch(rng, cuda, 1, 10, 32, 32, e2e=e2e)
     extra = (batch["fovs"],) if e2e else ()
     tk.reset_launches()
@@ -622,20 +623,21 @@ def test_train_mode_forward_on_the_card_launches_no_kernel(cuda, rng, e2e):
     assert all(".pre_conv." in k or ".redir3." in k for k in unused), unused
 
 
-@pytest.mark.parametrize("e2e", [False, True], ids=["dffnet", "e2e"])
-def test_packed_forward_on_the_card_matches_unpacked(cuda, rng, e2e):
+@pytest.mark.parametrize("arch", ["dffnet", "e2e"])
+def test_packed_forward_on_the_card_matches_unpacked(cuda, rng, arch):
     """fp32 within 1e-4 on every head; bf16 packed against fp32 unpacked under a
     stated bound: 15 % of the focus range (a whole bf16 forward is some forty
     convs deep; on the card at 10 x 384 x 384 the unpacked bf16 forward is up
     to 7 % of the range from its fp32, ``chip_smoke.py``'s ``forward_vs_cpu``)."""
     from dffx_torch.eval import load_params_auto
 
+    e2e = arch == "e2e"
     h, w = (64, 160) if e2e else (64, 96)
     fs = torch.from_numpy(rng.uniform(-1, 1, (1, 10, h, w, 3)).astype(np.float32)).to(cuda)
     fd = torch.from_numpy(np.linspace(0.1, 1.5, 10, dtype=np.float32)[None]).to(cuda)
     extra = (torch.from_numpy(np.linspace(1.0, 1.05, 10, dtype=np.float32)[None]).to(cuda),
              ) if e2e else ()
-    plain, packed = (load_params_auto(0, device=cuda, e2e=e2e, packed=p) for p in (False, True))
+    plain, packed = (load_params_auto(0, device=cuda, packed=p, arch=arch) for p in (False, True))
     with torch.inference_mode():
         ref = plain(fs, fd, *extra)
         tk.reset_launches()

@@ -86,7 +86,7 @@ def test_e2e_closure_matches_e2e_apply():
     tail: 1e-4 on the heads, 2e-5 on the warped stack."""
     fs, fd, fovs = hl.e2e_inputs((10, 64, 96), torch.float32, CPU, hl.generator(CPU))
     with torch.inference_mode():
-        got = hl.serving_net(True, CPU, e2e=True)(fs, fd, fovs)
+        got = hl.serving_net(True, CPU, arch="e2e")(fs, fd, fovs)
     hl.check_heads(got, fd, (1, 64, 96), "test")
     forward = jax.jit(lambda p, x, d, v: e2e_apply(p, x, d, v, Ctx(use_packed=True)))
     ref = forward(jinit(e2e_network_specs(), seed=hl.SEED),
@@ -147,8 +147,8 @@ def _raising_at(monkeypatch, batch: int, error: Exception) -> list:
     returns the batches the networks were called with."""
     seen, make = [], hl.serving_net
 
-    def serving_net(packed, dev, e2e=False):
-        net = make(packed, dev, e2e)
+    def serving_net(packed, dev, arch="dffnet"):
+        net = make(packed, dev, arch)
 
         def forward(fs, *rest):
             seen.append(int(fs.shape[0]))

@@ -385,18 +385,18 @@ def test_stage_params_come_in_the_activation_dtype(params):
         assert tuple(aff0[0].shape) == (1, 32, 1, 1, 1)
 
 
-@pytest.mark.parametrize("e2e", [False, True], ids=["dffnet", "e2e"])
-def test_packed_forward_matches_stored_goldens(e2e):
+@pytest.mark.parametrize("arch", ["dffnet", "e2e"])
+def test_packed_forward_matches_stored_goldens(arch):
     """tests/test_golden_regression.py's inputs (seed 7 params, rng 42) through
     ``packed=True``, at the unpacked port's golden tolerances."""
     rng = np.random.default_rng(42)
     fs = torch.from_numpy(rng.uniform(-1, 1, (1, 10, 64, 96, 3)).astype(np.float32))
     fd = torch.from_numpy((1 / np.linspace(0.2, 3.0, 10, dtype=np.float32))[None])
     ref = np.load(GOLDEN)
-    net = load_params_auto(7, device="cpu", e2e=e2e, packed=True)
+    net = load_params_auto(7, device="cpu", packed=True, arch=arch)
     assert net.DFF_net.packed
     with torch.no_grad():
-        if e2e:
+        if arch == "e2e":
             fovs = torch.from_numpy(np.linspace(1.0, 1.02, 10, dtype=np.float32)[None])
             out = net(fs, fd, fovs)
             np.testing.assert_allclose(out[3].numpy(), ref["e2e_pred3"], atol=1e-4)
@@ -480,16 +480,17 @@ def test_ndhwc_forward_matches_ncdhw(params, rng, packed, monkeypatch):
         np.testing.assert_allclose(g.numpy(), r.numpy(), atol=1e-5, err_msg=name)
 
 
-@pytest.mark.parametrize("e2e", [False, True], ids=["dffnet", "e2e"])
-def test_bf16_eval_forward_counts_its_stock_convs_by_layout(e2e):
+@pytest.mark.parametrize("arch", ["dffnet", "e2e"])
+def test_bf16_eval_forward_counts_its_stock_convs_by_layout(arch):
     """A bf16 eval forward: DFFNet's 65 stock convs and deconvs (the FM
     chain's five are kernels on the card) run on NDHWC inputs; FlowNetwork's
     14 stay NCDHW.  Every eval BN outside the kernels (DFFNet's 55,
     FlowNetwork's 10 more) takes the one pass (``stock.bn_fused``)."""
     from dffx_torch.utils import profiling
 
+    e2e = arch == "e2e"
     n = 10 if e2e else 4
-    net = load_params_auto(0, device="cpu", e2e=e2e)
+    net = load_params_auto(0, device="cpu", arch=arch)
     fs = torch.linspace(-1, 1, n * 64 * 96 * 3).reshape(1, n, 64, 96, 3).bfloat16()
     fd = torch.linspace(0.1, 1.5, n)[None]
     extra = (torch.linspace(1.0, 1.05, n)[None],) if e2e else ()
