@@ -7,9 +7,11 @@ jet depth JPEGs."""
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import math
 import os
 import time
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -90,6 +92,18 @@ class TimedForward:
     batch of B, one call adds B samples.  Inputs after the focus distances
     (``E2ENetwork``'s ``fovs``) go to the model as fp32 tensors.
 
+    Stage-in: with the model on the card, an input in host memory (a CPU
+    tensor or a numpy array) crosses through pinned host memory that the
+    instance keeps from call to call (``_PinnedStage``), one slice of
+    ``stage_plan`` at a time, cast on the host to the dtype the model gets;
+    the copies overlap the host's cast of the next slice and do not wait
+    for the previous call's forward.  The staged values equal
+    ``.to(device, dtype)``'s bit for bit.  An input already on the model's
+    device is used as it is, and with the model elsewhere (the CPU, the
+    ``meta`` device) every input goes through ``.to(device, dtype)``.  Once
+    a call returns, the caller's inputs are no longer read: it may
+    overwrite them at once.
+
     On the card a call returns once the previous call's forward has ended,
     not its own: the next forward is enqueued while this one runs, so the
     card does not idle between calls, and at most two forwards are in
@@ -113,10 +127,13 @@ class TimedForward:
     queue 1 item 10 would shard every stage).
 
     Spans (``utils/profiling.py``): ``serve.stage_in``, the inputs' copies
-    to the device, with the counter ``serve.staged_bytes``
-    (``_count_staged``); ``serve.forward``, the model call, whose host time
-    is the time to enqueue the forward and whose device time on the card is
-    this class's own pair of events."""
+    to the device, with the counters of ``_count_staged``:
+    ``serve.staged_bytes``, the bytes that came to the model's device from
+    elsewhere, as the model gets them, and, with the model on the card,
+    ``serve.staged_pinned``, those of them that came through the pinned
+    stage-in; ``serve.forward``, the model call, whose host time is the time
+    to enqueue the forward and whose device time on the card is this class's
+    own pair of events."""
 
     def __init__(self, model: nn.Module, *, dtype: torch.dtype = torch.float32,
                  spatial: int = 1, spatial_pallas: Optional[bool] = None):
@@ -126,6 +143,7 @@ class TimedForward:
         self._total = 0.0
         self._pending = None  # the last forward's (start, end) events on the card
         self.count = 0
+        self._pinned = _PinnedStage(self.device) if self.device.type == "cuda" else None
         self._spatial = None
         if spatial > 1:
             if distributed.process_count() != spatial:
@@ -148,10 +166,10 @@ class TimedForward:
     def __call__(self, fs, focus_dists, *extra):
         with profiling.span("serve.stage_in", self.device):
             sources = [torch.as_tensor(a) for a in (fs, focus_dists, *extra)]
-            staged = [sources[0].to(self.device, self.dtype)] + [
-                s.to(self.device, torch.float32) for s in sources[1:]]
+            dtypes = [self.dtype] + [torch.float32] * (len(sources) - 1)
+            staged = [self._stage_in(s, dtype) for s, dtype in zip(sources, dtypes)]
         if profiling.enabled():
-            _count_staged(sources, staged)
+            _count_staged(sources, staged, self._pinned is not None)
         fs, rest = staged[0], staged[1:]
         with torch.inference_mode():
             if self.device.type == "cuda":
@@ -171,6 +189,11 @@ class TimedForward:
                 self._total += time.perf_counter() - t0
         self.count += int(fs.shape[0])
         return outs
+
+    def _stage_in(self, src: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        if self._pinned is not None and src.device.type == "cpu":
+            return self._pinned(src, dtype)
+        return src.to(self.device, dtype)
 
     def _settle(self) -> None:
         """Wait for the last forward on the card and add its time."""
@@ -195,12 +218,76 @@ class TimedForward:
         return self.total / max(self.count, 1)
 
 
-def _count_staged(sources, staged) -> None:
-    """Counter ``serve.staged_bytes``: bytes of the inputs that came to the
+def _count_staged(sources, staged, pinned: bool) -> None:
+    """Counters ``serve.staged_bytes``: bytes of the inputs that came to the
     model's device from elsewhere, as the model gets them (a CPU source is
-    cast on the host before it crosses)."""
-    profiling.count("serve.staged_bytes", sum(t.nbytes for s, t in zip(sources, staged)
-                                              if s.device != t.device))
+    cast on the host before it crosses); and, where the model is on the card
+    (``pinned``), ``serve.staged_pinned``: those that came from host memory,
+    through ``_PinnedStage``."""
+    moved = [(s, t) for s, t in zip(sources, staged) if s.device != t.device]
+    profiling.count("serve.staged_bytes", sum(t.nbytes for _, t in moved))
+    if pinned:
+        profiling.count("serve.staged_pinned",
+                        sum(t.nbytes for s, t in moved if s.device.type == "cpu"))
+
+
+#: pinned host chunks that ``_PinnedStage`` cycles through: the host writes
+#: one while the link reads the ones before it
+STAGE_RING = 3
+
+
+def stage_plan(shape) -> List[Tuple[int, ...]]:
+    """The slices in which a host input crosses to the card, in order: an
+    index over every dimension but the last three (``(b, n)`` of a
+    ``(B, N, H, W, C)`` stack), or ``()``, the whole input, where it has
+    three dimensions or fewer."""
+    return list(itertools.product(*(range(d) for d in shape[:-3])))
+
+
+class _PinnedStage:
+    """Host tensors to the card through ``STAGE_RING`` pinned chunks kept
+    from call to call, one slice of ``stage_plan`` at a time: the host
+    writes a slice into a chunk, cast to the dtype the model gets (ATen's
+    host cast, as ``.to(device, dtype)`` makes it: round to nearest even),
+    enqueues the chunk's copy into its place (``non_blocking``) and goes on
+    to the next slice, so the link carries a slice while the host casts the
+    next one.  A chunk is written again once the copy that read it has
+    ended (its event), so pinned memory stays at ``STAGE_RING`` slices
+    whatever the batch.
+
+    The copies run on a stream of their own, which waits for nothing else:
+    they do not queue behind the previous call's forward, and waiting for a
+    chunk never waits for it.  The tensors are made on that stream and
+    marked used on the caller's (``record_stream``), and the caller's
+    stream waits for the copies, so that work enqueued after the call reads
+    the staged values."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.chunks: List[torch.Tensor] = []
+        self.read = [torch.cuda.Event() for _ in range(STAGE_RING)]  # each chunk's last copy
+        self.turn = 0
+
+    def __call__(self, src: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        size = math.prod(src.shape[-3:]) * dtype.itemsize
+        if not self.chunks or self.chunks[0].numel() < size:
+            self.chunks = [torch.empty(size, dtype=torch.uint8, pin_memory=True)
+                           for _ in range(STAGE_RING)]
+        current = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self.stream):
+            dst = torch.empty(src.shape, dtype=dtype, device=self.device)
+            for index in stage_plan(src.shape):
+                part = dst[index]
+                k, self.turn = self.turn, (self.turn + 1) % STAGE_RING
+                self.read[k].synchronize()
+                chunk = self.chunks[k][:part.nbytes].view(dtype).view(part.shape)
+                chunk.copy_(src[index])
+                part.copy_(chunk, non_blocking=True)
+                self.read[k].record(self.stream)
+        dst.record_stream(current)
+        current.wait_stream(self.stream)
+        return dst
 
 
 def cli_device(name: str) -> torch.device:

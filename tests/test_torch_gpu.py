@@ -1152,3 +1152,149 @@ def test_timed_forward_returns_after_the_previous_forward(cuda):
     tf.total, tf.count = 0.0, 0
     tf(fs, fd)
     assert 0 < tf.total < total
+
+
+#: cycles a stand-in model spins on the card before it reads its inputs
+#: (``torch.cuda._sleep``; about 30 ms on an H100), so that a later call's
+#: stage-in runs while the forward still waits to read
+STAGE_WAIT_CYCLES = 50_000_000
+CELL_STACK = (1, 10, 608, 1088, 3)
+
+
+class _Staged(torch.nn.Module):
+    """A model that spins ``cycles`` on the card, then hands back a copy of
+    each input it got: what the serving entry staged, as the forward reads
+    it."""
+
+    def __init__(self, dev, cycles=0):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.zeros(1, device=dev))
+        self.cycles = cycles
+
+    def forward(self, *inputs):
+        if self.cycles:
+            torch.cuda._sleep(self.cycles)
+        return tuple(t.clone() for t in inputs)
+
+
+def _host_inputs(seed, shape=CELL_STACK, layout="contiguous"):
+    """A float32 stack in host memory (values over a wide range, so that
+    every cast rounds) laid out as ``layout`` says, with focus distances
+    and fields of view as E2E takes them."""
+    g = torch.Generator().manual_seed(seed)
+    b, n, h, w, c = shape
+    if layout == "channels_first":
+        fs = torch.randn((b, c, n, h, w), generator=g).mul_(100).permute(0, 2, 3, 4, 1)
+    elif layout == "strided":
+        fs = torch.randn((b, n, h, 2 * w, c), generator=g).mul_(100)[:, :, :, ::2]
+    else:
+        fs = torch.randn(shape, generator=g).mul_(100)
+    fd = torch.linspace(0.2, 7.0, n).expand(b, n)
+    fovs = (1.0 + 0.02 * torch.rand((b, n), generator=g))
+    return fs, fd, fovs
+
+
+@pytest.mark.parametrize("shape", [CELL_STACK, (3, 5, 64, 96, 3)], ids=["cell", "b3"])
+@pytest.mark.parametrize("source", ["contiguous", "channels_first", "strided", "numpy"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32],
+                         ids=["bf16", "fp16", "fp32"])
+def test_host_inputs_stage_bit_for_bit(cuda, dtype, source, shape):
+    """With the model on the card, a host stack (a tensor of any strides or
+    a numpy array) and its focus distances and fields of view reach the
+    model equal to ``.to(cuda, dtype)`` bit for bit, through the pinned
+    stage-in: ``serve.staged_pinned`` counts every staged byte."""
+    from dffx_torch.eval import TimedForward
+    from dffx_torch.utils import profiling
+
+    fs, fd, fovs = _host_inputs(3, shape, "contiguous" if source == "numpy" else source)
+    assert fs.is_contiguous() == (source in ("contiguous", "numpy"))
+    args = (fs.numpy(), fd.numpy(), fovs.numpy()) if source == "numpy" else (fs, fd, fovs)
+    want = (fs.to(cuda, dtype), fd.to(cuda, torch.float32), fovs.to(cuda, torch.float32))
+    tf = TimedForward(_Staged(cuda), dtype=dtype)
+    profiling.reset()
+    try:
+        with profiling.collect():
+            got = tf(*args)
+        counters = profiling.counters()
+    finally:
+        profiling.reset()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+    staged = sum(w.nbytes for w in want)
+    assert counters == {"serve.staged_bytes": staged, "serve.staged_pinned": staged}
+
+
+def test_e2e_served_from_host_memory_equals_inputs_staged_by_to(cuda):
+    """E2E at the cell's 1 x 10 x 608 x 1088 in bf16: its outputs from host
+    inputs (numpy, as a client hands them) equal those from the same inputs
+    staged by ``.to()``."""
+    from dffx_torch.eval import TimedForward, load_params_auto
+
+    net = load_params_auto(0, device=cuda, arch="e2e")
+    g = torch.Generator().manual_seed(24)
+    fs = torch.rand(CELL_STACK, generator=g) * 2 - 1
+    fd = torch.linspace(0.2, 7.0, 10)[None]
+    fovs = torch.linspace(1.0, 1.02, 10)[None]
+    got = [o.cpu() for o in TimedForward(net, dtype=torch.bfloat16)(
+        fs.numpy(), fd.numpy(), fovs.numpy())]
+    with torch.inference_mode():
+        want = [o.cpu() for o in net(fs.to(cuda, torch.bfloat16), fd.to(cuda), fovs.to(cuda))]
+    assert len(got) == len(want) == 5
+    for o, w in zip(got, want):
+        assert o.dtype == w.dtype and torch.equal(o, w)
+
+
+def test_caller_may_overwrite_its_inputs_once_the_call_returns(cuda):
+    """Once a call returns its host inputs are no longer read: overwriting
+    them at once, while the forward has not yet read what was staged,
+    changes nothing it gets."""
+    from dffx_torch.eval import TimedForward
+
+    fs, fd, fovs = (t.numpy().copy() for t in _host_inputs(4))
+    want = [torch.from_numpy(fs).to(cuda, torch.bfloat16), torch.from_numpy(fd).to(cuda),
+            torch.from_numpy(fovs).to(cuda)]
+    tf = TimedForward(_Staged(cuda, STAGE_WAIT_CYCLES), dtype=torch.bfloat16)
+    got = tf(fs, fd, fovs)
+    for a in (fs, fd, fovs):
+        a[...] = -3.0
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_calls_back_to_back_each_get_their_own_stack(cuda):
+    """Four calls with four stacks and no host read between them (each
+    call's stage-in runs while the previous forward still waits to read):
+    each forward reads its own stack, though the pinned chunks and the
+    device memory of a staged stack are used again."""
+    from dffx_torch.eval import TimedForward
+
+    reqs = [_host_inputs(10 + i) for i in range(4)]
+    tf = TimedForward(_Staged(cuda, STAGE_WAIT_CYCLES), dtype=torch.bfloat16)
+    outs = [tf(*r) for r in reqs]
+    for (fs, fd, fovs), got in zip(reqs, outs):
+        assert torch.equal(got[0], fs.to(cuda, torch.bfloat16))
+        assert torch.equal(got[1], fd.to(cuda)) and torch.equal(got[2], fovs.to(cuda))
+
+
+def test_a_request_takes_no_new_pinned_memory(cuda):
+    """After warm-up a request neither makes nor takes a pinned block: the
+    stage-in holds ``STAGE_RING`` chunks of one slice each, at b3 as at b1."""
+    from dffx_torch.eval import TimedForward
+    from dffx_torch.eval.common import STAGE_RING
+
+    shape = (3, 10, 608, 1088, 3)
+    reqs = [[t.numpy() for t in _host_inputs(20 + i, shape)] for i in range(3)]
+    tf = TimedForward(_Staged(cuda), dtype=torch.bfloat16)
+    for r in reqs[:2]:
+        tf(*r)
+    torch.cuda.synchronize()
+    before = torch.cuda.host_memory_stats()
+    for r in reqs * 2:
+        tf(*r)
+    torch.cuda.synchronize()
+    after = torch.cuda.host_memory_stats()
+    for key in ("num_host_alloc", "active_requests.allocated"):
+        assert after[key] == before[key], key
+    chunks = tf._pinned.chunks
+    assert len(chunks) == STAGE_RING
+    assert all(c.is_pinned() and c.numel() == 608 * 1088 * 3 * 2 for c in chunks)

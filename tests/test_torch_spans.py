@@ -17,7 +17,8 @@ import torch
 from torch import nn
 
 from dffx_torch.data.pipeline import device_prefetch
-from dffx_torch.eval.common import TimedForward
+from dffx_torch.eval import common
+from dffx_torch.eval.common import TimedForward, stage_plan
 from dffx_torch.models import E2ENetwork, Network
 from dffx_torch.train import LossConfig, create_train_state, make_train_step
 from dffx_torch.utils import profiling
@@ -52,6 +53,18 @@ class Doubler(nn.Module):
 
     def forward(self, fs, focus_dists, *rest):
         return (torch.relu(fs * 2),)
+
+
+class Capture(nn.Module):
+    """A model that hands back the inputs it got, on the device of its one
+    parameter."""
+
+    def __init__(self, device="cpu"):
+        super().__init__()
+        self.w = nn.Parameter(torch.ones(1, device=device))
+
+    def forward(self, *inputs):
+        return inputs
 
 
 def test_off_a_span_does_one_flag_test(monkeypatch):
@@ -246,6 +259,72 @@ def test_timed_forward_counts_the_staged_bytes():
     with profiling.collect():
         TimedForward(Doubler())(fs, fd)
     assert profiling.counters() == {"serve.staged_bytes": 0}
+
+
+@pytest.mark.parametrize("host", ["tensor", "numpy"])
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+def test_off_the_card_inputs_stage_as_before(device, host, monkeypatch):
+    """With the model on the meta device or the CPU nothing is pinned: each
+    input goes through ``.to(device, dtype)``, ``serve.staged_bytes`` counts
+    what crossed, and ``serve.staged_pinned`` never fires."""
+
+    def boom(*a, **k):
+        raise AssertionError("a stage-in off the card went through pinned memory")
+
+    monkeypatch.setattr(common._PinnedStage, "__call__", boom)
+    fs, fd, fovs = stack()
+    serve = TimedForward(Capture(device), dtype=torch.bfloat16)
+    assert serve._pinned is None
+    args = (fs, fd, fovs) if host == "tensor" else (fs.numpy(), fd.numpy(), fovs.numpy())
+    with profiling.collect():
+        got = serve(*args)
+    want = [fs.to(device, torch.bfloat16), fd.to(device), fovs.to(device)]
+    for g, w in zip(got, want):
+        assert (g.device, g.dtype, g.shape) == (w.device, w.dtype, w.shape)
+        if device == "cpu":
+            assert torch.equal(g, w)
+    moved = sum(w.nbytes for w in want) if device == "meta" else 0
+    assert profiling.counters() == {"serve.staged_bytes": moved}
+
+
+def _layout(layout, shape):
+    """A float32 tensor of ``shape`` (B, N, H, W, C) holding 0, 1, 2, ... in
+    its logical order, laid out as ``layout`` says."""
+    b, n, h, w, c = shape
+    values = torch.arange(b * n * h * w * c, dtype=torch.float32).reshape(shape)
+    if layout == "contiguous":
+        return values
+    if layout == "channels_first":  # (B, C, N, H, W) in memory
+        return values.permute(0, 4, 1, 2, 3).contiguous().permute(0, 2, 3, 4, 1)
+    wide = torch.zeros((b, n, h, 2 * w, c))  # every other column of a wider stack
+    wide[:, :, :, ::2] = values
+    return wide[:, :, :, ::2]
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "channels_first", "strided"])
+@pytest.mark.parametrize("b", [1, 3])
+def test_stage_plan_covers_each_slice_once_in_order(b, layout):
+    """The stage-in's plan of a (B, N, H, W, C) stack is its (b, n) slices in
+    row-major order; copying a source slice by slice through it, whatever
+    the source's strides, writes every value once and gives the source."""
+    shape = (b, 4, 6, 5, 3)
+    src = _layout(layout, shape)
+    assert src.is_contiguous() == (layout == "contiguous")
+    plan = stage_plan(src.shape)
+    assert plan == [(i, j) for i in range(b) for j in range(4)]
+    out, hits = torch.full(shape, -1.0), torch.zeros(shape, dtype=torch.int64)
+    for index in plan:
+        out[index].copy_(src[index])
+        hits[index] += 1
+    assert torch.equal(out, src) and bool((hits == 1).all())
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((3, 10), [()]), ((10,), [()]), ((6, 5, 3), [()]), ((2, 6, 5, 3), [(0,), (1,)])])
+def test_stage_plan_takes_a_small_input_whole(shape, want):
+    """Focus distances and fields of view ((B, N)) cross in one piece; an
+    input of more than three dimensions is cut over the leading ones."""
+    assert stage_plan(shape) == want
 
 
 def test_trace_holds_the_spans_around_their_ops(tmp_path):
