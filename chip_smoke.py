@@ -10,8 +10,9 @@ ones, at a batch of many tiles and at more than 65,535 slices, each row with
 the least time the card could take for the same work (``bound_ms``).  The
 sixth, ``bn_act`` (the 16-bit eval BatchNorm's pass, with its residual add
 and ReLU; it replaces no Pallas kernel), is held to its twin bit for bit in
-bf16 and fp16 (``bn_act_rows``): at the two b32 serving cells' NDHWC
-activations and FlowNetwork's NCDHW ones, with and without the residual, and
+bf16 and fp16 (``bn_act_rows``): at the three b32 serving cells' NDHWC
+activations (DDFFNet's full-resolution 64 channels at b32 hold 4.53e9 values,
+past 2^31) and FlowNetwork's NCDHW ones, with and without the residual, and
 at the layouts its general path takes (C % 8 != 0, N * H * W % 8 != 0, a view
 not 16-byte aligned), each BN's scale and shift away from the identity, with
 its bound (bytes at the HBM rate), its twin's time and ATen's multiply, add,
@@ -23,7 +24,11 @@ residual add and ReLU as the comparison.  Then it drives two paths:
 * the end-to-end network (FlowNetwork alignment + DFFNet): the goldens, the
   forward against the CPU at 10 x 192 x 320, bf16 against fp32, and serving
   synthetic 10 x 608 x 1088 stacks (the real-scene shape) at batch 1 in fp32
-  and bf16.
+  and bf16;
+* DDFFNet: served through ``TimedForward`` at DDFF-12's 10 x 384 x 576, batch
+  1, in fp32 and bf16, every count at 0 just before each: none of the five
+  kernels, ``bn_act`` once for each of its 25 eval BNs in bf16 and not at all
+  in fp32; finite outputs, and bf16's rms gap to fp32.
 
 Then it trains (``dffx_torch.train``): one step of DFFNet and of the
 end-to-end network on the card against the same step on the CPU, remat
@@ -168,6 +173,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 N, H, W = 10, 384, 384  # the DFFNet bench shape: DDFF-12-sized 10-slice stacks
 EH, EW = 608, 1088  # the end-to-end real-scene shape (bench.py's E2E stacks)
+DW = 576  # DDFF-12's padded width: DDFFNet's serving shape is N x H x DW
 MH, MW = 192, 320  # end-to-end GPU-vs-CPU shape: a CPU forward stays seconds
 FP32_ATOL = 1e-4
 GOLDEN_ATOL = 2e-4
@@ -278,15 +284,16 @@ DFFNET_LAUNCHES = {"fm_conv_bn_relu": 1, "rb2d_residual": 1, "srd_attention_resi
 FLOWNET_LAUNCHES = {"rb_of_chain": 3, "motion_head_conv_chain": 1}
 E2E_LAUNCHES = {**DFFNET_LAUNCHES, **FLOWNET_LAUNCHES}
 #: ``bn_act`` launches in one bf16 eval forward: every eval BN outside the five
-#: kernels (DFFNet 55 in either graph, FlowNetwork's stock layers 10;
-#: tests/test_torch_bn_act.py counts them on the CPU); none in fp32 or training
-BN_PASSES = {"dffnet": 55, "flownet": 10, "e2e": 65}
-NET_LAUNCHES = {"dffnet": DFFNET_LAUNCHES, "flownet": FLOWNET_LAUNCHES, "e2e": E2E_LAUNCHES}
+#: kernels (DFFNet 55 in either graph, FlowNetwork's stock layers 10, DDFFNet
+#: 25; tests/test_torch_bn_act.py counts them on the CPU); none in fp32 or training
+BN_PASSES = {"dffnet": 55, "flownet": 10, "e2e": 65, "ddffnet": 25}
+NET_LAUNCHES = {"dffnet": DFFNET_LAUNCHES, "flownet": FLOWNET_LAUNCHES, "e2e": E2E_LAUNCHES,
+                "ddffnet": {}}
 
 
 def want_launches(net: str, dtype, forwards: int = 1) -> dict:
     """Launches of each kernel in ``forwards`` eval forwards of ``net``
-    ("dffnet", "flownet", "e2e") in ``dtype`` (a torch dtype or its name)."""
+    ("dffnet", "flownet", "e2e", "ddffnet") in ``dtype`` (a torch dtype or its name)."""
     bf16 = str(dtype).split(".")[-1] in ("bfloat16", "bf16")
     return {**{k: v * forwards for k, v in NET_LAUNCHES[net].items()},
             "bn_act": BN_PASSES[net] * forwards if bf16 else 0}
@@ -425,10 +432,12 @@ def phase_kernels(torch, tk, dev) -> dict:
     return path
 
 
-#: ``bn_act`` rows: (tag, shape, layout, residual, dtype).  The two b32
+#: ``bn_act`` rows: (tag, shape, layout, residual, dtype).  The three b32
 #: serving cells' NDHWC activations at 10 x 384 x 576 (``BN_ACT_CELLS``:
 #: DFFNet's 16ch @ 1/2 with the residual, its packed full resolution as 32ch
-#: @ 1/2; DFV's 3-D decoder's 32ch @ 1/4 with the residual, its 16ch @ 1/2),
+#: @ 1/2; DFV's 3-D decoder's 32ch @ 1/4 with the residual, its 16ch @ 1/2;
+#: DDFFNet's 64ch at full resolution, 4.53e9 values, past 2^31, its 256ch @
+#: 1/4 and 512ch @ 1/16, none with a residual),
 #: FlowNetwork's NCDHW ones at 608 x 1088 (16ch @ 1/2 with the residual, 8ch
 #: at full resolution), then the general path's: NDHWC with C % 8 != 0, NCDHW
 #: with N * H * W % 8 != 0 (FlowNetwork at another image size), a view 2 bytes
@@ -437,13 +446,17 @@ BN_ACT_CASES = (("dffnet_half_z", (32, 16, 10, 192, 288), "ndhwc", True, "bfloat
                 ("dffnet_packed", (32, 32, 10, 192, 288), "ndhwc", False, "bfloat16"),
                 ("dfv_quarter_z", (32, 32, 10, 96, 144), "ndhwc", True, "bfloat16"),
                 ("dfv_half", (32, 16, 10, 192, 288), "ndhwc", False, "bfloat16"),
+                ("ddffnet_full", (32, 64, 10, 384, 576), "ndhwc", False, "bfloat16"),
+                ("ddffnet_quarter", (32, 256, 10, 96, 144), "ndhwc", False, "bfloat16"),
+                ("ddffnet_sixteenth", (32, 512, 10, 24, 36), "ndhwc", False, "bfloat16"),
                 ("flownet_half_z", (1, 16, 10, 304, 544), "ncdhw", True, "bfloat16"),
                 ("flownet_full", (1, 8, 10, 608, 1088), "ncdhw", False, "bfloat16"),
                 ("ndhwc_c12_z", (2, 12, 10, 96, 144), "ndhwc", True, "bfloat16"),
                 ("ncdhw_odd_z", (1, 16, 10, 150, 271), "ncdhw", True, "bfloat16"),
                 ("misaligned_z", (1, 16, 10, 152, 272), "ncdhw", True, "bfloat16"),
                 ("fp16_half_z", (32, 16, 10, 192, 288), "ndhwc", True, "float16"))
-BN_ACT_CELLS = ("dffnet_half_z", "dffnet_packed", "dfv_quarter_z", "dfv_half")
+BN_ACT_CELLS = ("dffnet_half_z", "dffnet_packed", "dfv_quarter_z", "dfv_half", "ddffnet_full",
+                "ddffnet_quarter", "ddffnet_sixteenth")
 
 
 def bn_act_rows(torch, tk, dev) -> dict:
@@ -454,7 +467,9 @@ def bn_act_rows(torch, tk, dev) -> dict:
     rounding) and count one launch; it gives its time, its twin's, ATen's
     multiply, add, residual add and ReLU on the same operands (the path before
     the pass, ``aten_ms``) and its bound: the bytes read and written at the
-    HBM rate.  Returns the rows at BN_ACT_CELLS under "bfloat16", as
+    HBM rate.  The twin is compared, then dropped before the timings, and the
+    largest gap is read only where they differ, so that DDFFNet's 9 GB rows
+    fit the card.  Returns the rows at BN_ACT_CELLS under "bfloat16", as
     ``phase_kernels`` does for the five."""
     import numpy as np
 
@@ -484,6 +499,9 @@ def bn_act_rows(torch, tk, dev) -> dict:
         torch.cuda.synchronize()
         check(tk.launches["bn_act"] == before + 1, f"bn_act {tag}: launches")
         ref = tk.bn_act_ref(x, scale, shift, z, True)
+        equal = torch.equal(got, ref)
+        err = 0.0 if equal else (got.float() - ref.float()).abs().max().item()
+        del ref
         view = (1, -1, 1, 1, 1)
 
         def aten():
@@ -494,8 +512,7 @@ def bn_act_rows(torch, tk, dev) -> dict:
         least_ms = x.nbytes * (3 if residual else 2) / HBM_BYTES_PER_S * 1e3
         row = {"phase": "kernel", "kernel": "bn_act", "shape": tag, "in": list(shape),
                "layout": layout, "residual": residual, "dtype": dtype_name,
-               "equal_to_twin": torch.equal(got, ref),
-               "max_abs_err": (got.float() - ref.float()).abs().max().item(), "ms": ms,
+               "equal_to_twin": equal, "max_abs_err": err, "ms": ms,
                "plain_ms": median_ms(lambda: tk.bn_act_ref(x, scale, shift, z, True)),
                "aten_ms": median_ms(aten), "bound_ms": least_ms, "bound_by": "bytes",
                "ms_over_bound": ms / least_ms}
@@ -503,8 +520,8 @@ def bn_act_rows(torch, tk, dev) -> dict:
         check(row["equal_to_twin"], f"bn_act {tag}: not its twin ({row['max_abs_err']})")
         if tag in BN_ACT_CELLS:
             cells.append(row)
-        del x, z, got, ref
-    torch.cuda.empty_cache()
+        del x, z, got
+        torch.cuda.empty_cache()
     return {"float32": [], "bfloat16": cells}
 
 
@@ -554,7 +571,7 @@ def kernel_entry(name: str, rows: dict, launches: int, train_launches: int,
     shapes summed (``rows``: those rows by dtype); a kernel with several
     (rb_of_chain's three pyramid levels) also lists each under ``levels``;
     ``bf16``: its bf16 rows there, summed the same way (``bn_act``: no fp32
-    rows, and its bf16 rows at the two b32 serving cells' shapes, with ATen's
+    rows, and its bf16 rows at the three b32 serving cells' shapes, with ATen's
     time as ``aten_ms``).  ``launches``: in the
     end-to-end serving run; ``train_launches``: in every train step (one process and data
     parallel); ``cli_launches``: in each command line's measured run
@@ -2551,12 +2568,32 @@ def main() -> int:
         served = dict(tk.launches)
         check_launches(served, add_launches(*want), "e2e serving")
 
-    # 10. training: no kernel launches in any train step
+    # 10. DDFFNet served at DDFF-12's padded shape, b1, fp32 then bf16, each
+    # with every count at 0 just before it: bf16 applies its 25 eval BNs
+    # through bn_act, and no forward launches any of the five kernels
+    ddff = load_params_auto(0, device=dev, arch="ddffnet")
+    fs = torch.from_numpy(rng.uniform(-1, 1, (1, 10, H, DW, 3)).astype(np.float32))
+    preds, launched = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tk.reset_launches()
+        pred, maps = TimedForward(ddff, dtype=dtype)(fs, fd10)
+        torch.cuda.synchronize()
+        launched[str(dtype)] = dict(tk.launches)
+        check_launches(tk.launches, want_launches("ddffnet", dtype), f"ddffnet {dtype}")
+        check(bool(pred.isfinite().all() and maps.isfinite().all()), f"ddffnet {dtype}: finite")
+        preds[dtype] = pred.double()
+    gap = ((preds[torch.bfloat16] - preds[torch.float32]).square().mean().sqrt()
+           / preds[torch.float32].square().mean().sqrt()).item()
+    emit({"phase": "ddffnet_serving", "shape": [1, 10, H, DW], "launches": launched,
+          "bf16_vs_fp32_pred_rms": gap})
+    del ddff, preds
+
+    # 11. training: no kernel launches in any train step
     train_launches = phase_train(torch, np, tk, dev, smi)
     library = fm_conv_library(torch, tk, dev)
     emit({"phase": "fm_conv_library", **library})
 
-    # 11. the command lines, each run with every count at 0 just before it
+    # 12. the command lines, each run with every count at 0 just before it
     emit({"phase": "host_gaps", "not_run_on_card": [
         {"package": pkg, "missing": True, "instead": what} for pkg, what in HOST_GAPS.items()]})
     phase_host_decode(np, smi)
@@ -2564,12 +2601,12 @@ def main() -> int:
                 "real_scenes_cli": phase_real_scenes_cli(torch, np, tk, dev, smi),
                 "train_cli_validation": phase_train_cli(torch, np, tk, dev, smi)}
 
-    # 12. the simulator's command line, its output through the reader and the
+    # 13. the simulator's command line, its output through the reader and the
     # E2E trainer, then the front door; no kernel of the port on either path
     phase_simulate(torch, np, tk, dev, smi)
     phase_front_door(kind, smi)
 
-    # 13. several processes on the card, each path with every count at 0 just
+    # 14. several processes on the card, each path with every count at 0 just
     # before it and read just after: data-parallel steps (no kernel), the
     # train command line as two ranks, and spatial serving (all five kernels
     # on each rank's rows)
@@ -2577,7 +2614,7 @@ def main() -> int:
     cli_runs["dp_train_cli_validation"] = phase_dp_train_cli(torch, np, tk, dev, smi)
     spatial = phase_spatial(torch, np, tk, dev, smi)
 
-    # 14. the headline benchmark (dffx_torch/headline.py) in a process of its
+    # 15. the headline benchmark (dffx_torch/headline.py) in a process of its
     # own, each point's counts at 0 just before it and read just after
     headline = phase_headline(torch, smi)
 

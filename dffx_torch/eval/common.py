@@ -1,5 +1,5 @@
-"""Serving utilities: DFFNet, the end-to-end network or DFV with weights
-from a reference ``.pth``, a ``dffx`` ``.ckpt`` or a seed, a timed eval
+"""Serving utilities: DFFNet, the end-to-end network, DFV or DDFFNet with
+weights from a reference ``.pth``, a ``dffx`` ``.ckpt`` or a seed, a timed eval
 forward with the reference's ``AVG_time`` semantics (on one rank, or
 H-sharded over ``spatial`` ranks), the device of the command lines, and the
 jet depth JPEGs."""
@@ -19,8 +19,8 @@ from torch import nn
 
 from dffx_torch.checkpoint import load_dffx_checkpoint, load_jax_params, load_torch_checkpoint
 from dffx_torch.data.native import require
-from dffx_torch.models import (DFV, E2ENetwork, Network, dfv_init_params, e2e_init_params,
-                               init_params)
+from dffx_torch.models import (DFV, DDFFNet, E2ENetwork, Network, ddffnet_init_params,
+                               dfv_init_params, e2e_init_params, init_params)
 from dffx_torch.models.layers import spatial_serving
 from dffx_torch.models.packed import PACKED_DEFAULT
 from dffx_torch.parallel import distributed, make_mesh
@@ -45,20 +45,22 @@ NETWORKS = {
     "dffnet": Served(Network, init_params, 3, True),
     "e2e": Served(E2ENetwork, e2e_init_params, 3, True),
     "dfv": Served(lambda packed: DFV(), dfv_init_params, 0, False),
+    "ddffnet": Served(lambda packed: DDFFNet(), ddffnet_init_params, 0, False),
 }
 
 
 def load_params_auto(source: Union[str, int], *, device="cuda", packed: bool = PACKED_DEFAULT,
                      arch: str = "dffnet") -> nn.Module:
     """The eval-mode network ``NETWORKS[arch]`` on ``device``: ``Network``
-    (depth only, the default), ``E2ENetwork`` (alignment + depth) or
-    ``DFV`` (depth and its spread).  The weights come from a reference
-    ``.pth`` path (a torch state
-    dict, or one under a training checkpoint's ``state_dict`` key, as DFV's
-    are saved), from any other path as a checkpoint the JAX package wrote
-    (``dffx.checkpoint.save``, format v2: a ``.ckpt`` of the train CLI, whose
-    ``params`` are served; not DFV, which the JAX package lacks) or from an
-    int seed (``Served.init``).  ``packed``: DFFNet's EFDs and
+    (depth only, the default), ``E2ENetwork`` (alignment + depth),
+    ``DFV`` (depth and its spread) or ``DDFFNet`` (depth and the per-slice
+    maps it fuses, for DDFF-12's 10-slice stacks).  The weights come from a
+    reference ``.pth`` path (a torch state dict, or one under a training
+    checkpoint's ``state_dict`` key, as DFV's are saved), from any other
+    path as a checkpoint the JAX package wrote (``dffx.checkpoint.save``,
+    format v2: a ``.ckpt`` of the train CLI, whose ``params`` are served;
+    not DFV or DDFFNet, which the JAX package lacks) or from an int seed
+    (``Served.init``).  ``packed``: DFFNet's EFDs and
     full-resolution stage run space-to-depth (``models/packed.py``), the
     graph the JAX package serves; the weights are the same either way.  The
     default device is the GPU: without one this raises, and the CPU is used

@@ -4,7 +4,7 @@
     python -m dffx_torch.eval.test --dataset DDFF [--data-root Datasets/]
         [--results-root Results_test/] [--checkpoint path.pth|path.ckpt]
         [--dtype fp32|bf16] [--allow-random-init] [--batch_size 8] [--cpus 4]
-        [--device cuda|cpu] [--arch dffnet|dfv]
+        [--device cuda|cpu] [--arch dffnet|dfv|ddffnet]
         [--spatial S [--spatial-pallas | --spatial-xla]]
 
 Same dataset dispatch, constants, metric prints (including the FlyingThings3D
@@ -15,7 +15,9 @@ decoded by the ``Loader``'s threads, copied to the card ahead of use
 forward runs on ``--device`` (default ``cuda``; without a card the command
 raises, and ``--device cpu`` runs it on the CPU).  ``--arch dfv`` serves
 DFV (``dffx_torch/models/dfv.py``) in place of DFFNet, through the same
-``TimedForward`` and readers, its depth map being its ``pred3``.
+``TimedForward`` and readers, its depth map being its ``pred3``; ``--arch
+ddffnet`` serves DDFFNet (``dffx_torch/models/ddffnet.py``) so, its depth
+map being its ``pred``; its fusion is 10 slices wide, DDFF-12's stacks.
 
 ``--spatial S`` serves each forward over S processes, one rank each, which
 run the kernels' chains on their rows of H behind one halo exchange and the
@@ -160,12 +162,12 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="where the forward runs; 'cpu' only when asked")
     parser.add_argument("--arch", choices=ARCHS, default="dffnet",
-                        help="the network served: DFFNet (default) or DFV")
+                        help="the network served: DFFNet (default), DFV or DDFFNet")
     add_spatial_flags(parser)
     args = parser.parse_args(argv)
     spatial_pallas = spatial_choice(parser, args)
-    if args.arch == "dfv" and args.spatial > 1:
-        parser.error("--spatial shards the kernels' chains of DFFNet; DFV has none")
+    if args.arch != "dffnet" and args.spatial > 1:
+        parser.error(f"--spatial shards the kernels' chains of DFFNet; {args.arch} has none")
 
     device = distributed.initialize(device=cli_device(args.device))
     try:

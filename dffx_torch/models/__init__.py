@@ -1,4 +1,4 @@
-"""dffx_torch.models — DFFNet, the end-to-end network and DFV as
+"""dffx_torch.models — DFFNet, the end-to-end network, DFV and DDFFNet as
 ``nn.Module``s keyed like their references."""
 
 from dffx_torch.models.alignnet import (
@@ -9,6 +9,7 @@ from dffx_torch.models.alignnet import (
     ResnetBlock2dOF,
     e2e_init_params,
 )
+from dffx_torch.models.ddffnet import DDFFNet, ddffnet_init_params
 from dffx_torch.models.dffnet import DFFNet, Hourglass, HourglassUp, Network, init_params
 from dffx_torch.models.dfv import DFV, dfv_init_params
 from dffx_torch.models.layers import EFD, SRD, FMModule, ResnetBlock2d, init_module_params
@@ -21,6 +22,8 @@ __all__ = [
     "init_params",
     "DFV",
     "dfv_init_params",
+    "DDFFNet",
+    "ddffnet_init_params",
     "E2ENetwork",
     "FlowNetwork",
     "MotionHead",

@@ -24,7 +24,7 @@ pyramid pooling with a 1x1 conv-BN-ReLU a path, and a top-down path of
 nearest x2 upsampling and 3x3 convs.  HSM's ``projfeat3d`` (a 1x1 Conv2d over
 ``(N, H * W)`` with BatchNorm2d) is the 1x1x1 conv-BN it computes; a
 checkpoint under DFV's keys loads as it is, its 2-D conv weights given a
-depth axis of 1 (``DFV``'s load hook).
+depth axis of 1 (``layers.unit_depth_weights``).
 
 Every activation is laid out as ``ops/conv.py::activation_format`` says from
 the stack's dtype and the mode: NDHWC for a 16-bit eval forward, where the
@@ -48,7 +48,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from dffx_torch.models.layers import BatchNorm3d, Conv3d, ConvBN3d, Seq, init_module_params
+from dffx_torch.models.layers import (BatchNorm3d, Conv3d, ConvBN3d, Seq, init_module_params,
+                                      unit_depth_weights)
 from dffx_torch.ops import (avg_pool3d, resize_trilinear, softmax_argmax, upsample_bilinear,
                             upsample_nearest2x)
 from dffx_torch.ops.conv import activation_format, layout_of
@@ -239,16 +240,6 @@ class DecoderBlock(nn.Module):
         return self.classify(x)[:, 0]
 
 
-def _from_dfv_checkpoint(module, state_dict, prefix, *args) -> None:
-    """Load hook: a 2-D conv weight of DFV's checkpoint ``(Cout, Cin, kh,
-    kw)`` becomes the ``(Cout, Cin, 1, kh, kw)`` weight of the conv3d that
-    computes it."""
-    for name, p in module.named_parameters():
-        key = prefix + name
-        if key in state_dict and state_dict[key].dim() == p.dim() - 1 == 4:
-            state_dict[key] = state_dict[key].unsqueeze(2)
-
-
 class DFV(nn.Module):
     """Focal stack -> (pred3, std3, cost3): the depth and its standard
     deviation, each ``(B, H, W)``, and the cost ``(B, N, H/4, W/4)`` they
@@ -266,7 +257,7 @@ class DFV(nn.Module):
         self.decoder4 = DecoderBlock(64, 32, up=True)
         self.decoder5 = DecoderBlock(128, 64, up=True, pool=True)
         self.decoder6 = DecoderBlock(128, 128, up=True, pool=True)
-        self.register_load_state_dict_pre_hook(_from_dfv_checkpoint)
+        self.register_load_state_dict_pre_hook(unit_depth_weights)
 
     def forward(self, fs: torch.Tensor, focus_dists: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -43,7 +43,7 @@ from torch.utils.checkpoint import checkpoint
 
 from dffx_torch.ops import batch_norm_train, bn_fused_affine, conv3d, deconv3d
 from dffx_torch.ops.norm import affine_act
-from dffx_torch.ops.conv import is_ndhwc, ndhwc_weight
+from dffx_torch.ops.conv import is_ndhwc, ndhwc_weight, slice_conv2d
 from dffx_torch.ops.halo import sharded_rows, spatial_ok
 from dffx_torch.ops.kernels import (ParamCache, fm_conv_bn_relu, fm_conv_params, rb2d_params,
                                     rb2d_residual, srd_attention_params, srd_attention_residual,
@@ -76,17 +76,45 @@ class Conv3d(nn.Conv3d):
                       padding=self.padding, dilation=self.dilation)
 
 
-class ConvTranspose3d(nn.ConvTranspose3d):
-    """The reference's only deconv: k3, pad 1, stride (1,2,2), output_padding
-    (0,1,1), bias-free; doubles H and W.  Runs in the input's layout."""
+class SliceConv2d(Conv3d):
+    """A 2-D k x k conv of each slice (stride 1, padding k // 2, no bias),
+    held as the ``(1, k, k)`` ``Conv3d`` that computes it (its weight and
+    keys), run by ``ops/conv.py::slice_conv2d``: on NDHWC as ``F.conv2d``
+    over the slices, under cuDNN's 2-D heuristics."""
 
-    def __init__(self, cin, cout):
-        super().__init__(cin, cout, 3, stride=(1, 2, 2), padding=1,
-                         output_padding=(0, 1, 1), bias=False)
+    def __init__(self, cin, cout, k=3):
+        super().__init__(cin, cout, (1, k, k), padding=(0, k // 2, k // 2))
+
+    def forward(self, x):
+        return slice_conv2d(x, _weight(self, x), padding=self.padding[1:])
+
+
+class ConvTranspose3d(nn.ConvTranspose3d):
+    """A bias-free ``nn.ConvTranspose3d`` that runs in the input's layout.
+    The defaults are DFFNet's only deconv: k3, pad 1, stride (1,2,2),
+    output_padding (0,1,1), which doubles H and W; DDFFNet's upconvs are
+    ``(1, 4, 4)``, stride (1,2,2), padding (0,1,1), no output padding."""
+
+    def __init__(self, cin, cout, k=3, *, stride=(1, 2, 2), padding=1,
+                 output_padding=(0, 1, 1)):
+        super().__init__(cin, cout, k, stride=stride, padding=padding,
+                         output_padding=output_padding, bias=False)
         self._kept = ParamCache(ndhwc_weight)
 
     def forward(self, x):
-        return deconv3d(x, _weight(self, x))
+        return deconv3d(x, _weight(self, x), stride=self.stride, padding=self.padding,
+                        output_padding=self.output_padding)
+
+
+def unit_depth_weights(module, state_dict, prefix, *args) -> None:
+    """Load hook of a network whose 2-D convs and deconvs run as conv3ds of
+    kernel ``(1, kh, kw)`` (DFV, DDFFNet): a checkpoint's 4-D weight, a
+    conv's ``(Cout, Cin, kh, kw)`` or a deconv's ``(Cin, Cout, kh, kw)``,
+    gets the depth axis of 1 of the 5-D parameter it loads into."""
+    for name, p in module.named_parameters():
+        key = prefix + name
+        if key in state_dict and state_dict[key].dim() == p.dim() - 1 == 4:
+            state_dict[key] = state_dict[key].unsqueeze(2)
 
 
 #: set while ``torch.utils.checkpoint`` recomputes a stage in the backward

@@ -1,9 +1,12 @@
 """dffx_torch.ops — the JAX package's numerics kit in PyTorch, ``(B, C, N, H, W)``.
 
-* ``conv3d`` / ``deconv3d``     — Conv3d / ConvTranspose3d (output_padding (0,1,1))
+* ``conv3d`` / ``deconv3d``     — Conv3d / ConvTranspose3d (any kernel, stride, padding and
+                                  output padding; defaults DFFNet's k3 deconv, output_padding
+                                  (0,1,1); DDFFNet's (1,4,4) upconvs per slice on NDHWC)
 * ``batch_norm``, ``bn_fused_affine`` — eval BatchNorm with running statistics
 * ``batch_norm_train``          — train BatchNorm: batch statistics, new running ones
-* ``max_pool3d`` / ``avg_pool3d`` — (1,k,k) pooling
+* ``max_pool3d`` / ``avg_pool3d`` — MaxPool3d / AvgPool3d, no padding (DDFFNet's (1,2,2)
+                                  max-pools; DFV's averages, over N too); both keep NDHWC
 * ``adaptive_avg_pool_focus``   — the motion heads' AdaptiveAvgPool3d((10,1,1))
 * ``upsample_bilinear``         — F.upsample(mode='bilinear'), align_corners=False
 * ``resize_trilinear`` / ``upsample_nearest2x`` — DFV's resizes of (B, C, N, H, W)

@@ -183,10 +183,13 @@ def test_gate_sends_recording_and_fp32_to_aten():
 NETWORKS = {"dffnet_packed": ({"packed": True}, (1, 4, 64, 96)),
             "dffnet_unpacked": ({"packed": False}, (1, 4, 64, 96)),
             "e2e": ({"arch": "e2e"}, (1, 10, 64, 96)),
-            "dfv": ({"arch": "dfv"}, (1, 5, 64, 96))}
+            "dfv": ({"arch": "dfv"}, (1, 5, 64, 96)),
+            "ddffnet": ({"arch": "ddffnet"}, (1, 10, 64, 96))}
 #: eval BNs a forward applies: DFFNet's 55 outside the FM kernels,
-#: FlowNetwork's 10 on stock layers, DFV's 61
-BNS = {"dffnet_packed": 55, "dffnet_unpacked": 55, "e2e": 65, "dfv": 61}
+#: FlowNetwork's 10 on stock layers, DFV's 61, DDFFNet's 25
+BNS = {"dffnet_packed": 55, "dffnet_unpacked": 55, "e2e": 65, "dfv": 61, "ddffnet": 25}
+#: networks with no residual add after a BN
+NO_RESIDUAL = {"ddffnet"}
 
 
 def _net(name: str, seed: int = 0):
@@ -287,7 +290,8 @@ def test_chip_smoke_expects_the_passes_counted_here():
         sys.path.pop(0)
     assert BNS["dffnet_packed"] == BNS["dffnet_unpacked"]
     assert chip_smoke.BN_PASSES == {"dffnet": BNS["dffnet_packed"], "e2e": BNS["e2e"],
-                                    "flownet": BNS["e2e"] - BNS["dffnet_packed"]}
+                                    "flownet": BNS["e2e"] - BNS["dffnet_packed"],
+                                    "ddffnet": BNS["ddffnet"]}
 
 
 @pytest.mark.parametrize("name", list(NETWORKS))
@@ -303,7 +307,7 @@ def test_each_pass_is_atens_ops_within_their_roundings(forwards, name):
         assert _within_roundings(y, aten, x, scale, shift, z)
         relu_sites += relu
         residual_sites += z is not None
-    assert relu_sites > 0 and residual_sites > 0
+    assert relu_sites > 0 and (residual_sites > 0) == (name not in NO_RESIDUAL)
 
 
 @pytest.mark.parametrize("name", list(NETWORKS))

@@ -1126,6 +1126,77 @@ def test_dfv_bf16_on_the_card_matches_the_reference(cuda):
             assert gap <= limits[f"{name}_rms"], (name, gap)
 
 
+def test_ddffnet_bf16_on_the_card_matches_the_reference(cuda):
+    """DDFFNet served in bf16 NDHWC (``TimedForward``) at b2 of 10 x 64 x 96
+    against the plain fp32 reference (``tests/ddffnet_reference.py``) on the
+    card, under the limits of the cell ``ddffnet-ddff12.batch-b32`` (rms gap
+    over the reference's rms); its weights drawn as the benchmark draws
+    them (every conv and upconv MSRA but the last, U(+-1 / sqrt(fan_in));
+    the fusion U[0.8, 1.2); BatchNorm away from the identity).
+    Every conv, upconv and pool keeps the NDHWC layout (no stock conv
+    counts NCDHW; each output but the one-channel map's and the fusion's is
+    NDHWC), none of the five hand kernels launches, and each of its
+    25 eval BNs is one launch of the BN pass."""
+    import json
+    import math
+    from pathlib import Path
+
+    from ddffnet_reference import DDFFNetReference, reference_state_dict
+
+    from dffx_torch.eval import TimedForward, load_params_auto
+    from dffx_torch.models.layers import BatchNorm3d, Conv3d, ConvTranspose3d
+    from dffx_torch.ops.conv import is_ndhwc
+    from dffx_torch.utils import profiling
+
+    limits = json.loads((Path(__file__).resolve().parents[1] / "portbench" / "limits"
+                         / "ddffnet-ddff12.batch-b32.json").read_text())["limits"]
+    net = load_params_auto(3, arch="ddffnet", device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, BatchNorm3d):
+                for t, lo, hi in ((m.weight, 0.8, 1.2), (m.bias, -0.1, 0.1),
+                                  (m.running_mean, -0.1, 0.1), (m.running_var, 0.8, 1.2)):
+                    t.copy_(lo + (hi - lo) * torch.rand(t.shape, generator=g, device=cuda))
+            elif m is net.scoring:  # the fusion, drawn as the benchmark draws it
+                m.weight.copy_(0.8 + 0.4 * torch.rand(m.weight.shape, generator=g, device=cuda))
+            elif m is net.conv1_1_D:  # the last conv, at torch's default bound
+                bound = m.weight[0].numel() ** -0.5
+                m.weight.copy_(bound * (2 * torch.rand(m.weight.shape, generator=g,
+                                                       device=cuda) - 1))
+            elif isinstance(m, (Conv3d, ConvTranspose3d)):
+                w = m.weight
+                cout = w.shape[1] if isinstance(m, ConvTranspose3d) else w.shape[0]
+                w.copy_(torch.randn(w.shape, generator=g, device=cuda)
+                        * math.sqrt(2.0 / (math.prod(w.shape[2:]) * cout)))
+    ref = DDFFNetReference(10).to(cuda).eval()
+    ref.load_state_dict(reference_state_dict(net.state_dict()))
+    fs = (torch.rand((2, 10, 64, 96, 3), generator=g, device=cuda) * 2 - 1).bfloat16()
+    fd = torch.linspace(0.2, 7.0, 10, device=cuda).expand(2, 10).contiguous()
+    layouts = []
+    hooks = [m.register_forward_hook(lambda m, a, out: layouts.append(is_ndhwc(out)))
+             for m in net.modules() if isinstance(m, (Conv3d, ConvTranspose3d))
+             and m is not net.conv1_1_D and m is not net.scoring]
+    with profiling.collect():
+        profiling.reset()
+        got = TimedForward(net, dtype=torch.bfloat16)(fs, fd)
+        counts = profiling.counters()
+    profiling.reset()
+    for h in hooks:
+        h.remove()
+    with torch.inference_mode():
+        want = ref(fs.float(), fd)
+    assert tk.launches == {**dict.fromkeys(tk.launches, 0), "bn_act": 25}
+    assert counts["stock.conv_ndhwc"] == 31 and "stock.conv_ncdhw" not in counts
+    assert len(layouts) == 30 and all(layouts)  # every conv and upconv but the last two
+    assert len(got) == len(want) == 2
+    for name, o, w in zip(("pred", "maps"), got, want):
+        assert o.dtype == torch.bfloat16 and o.shape == w.shape
+        if f"{name}_rms" in limits:  # the outputs the cell holds to a limit
+            gap = float((o.float() - w).square().mean().sqrt() / w.square().mean().sqrt())
+            assert gap <= limits[f"{name}_rms"], (name, gap)
+
+
 def test_timed_forward_returns_after_the_previous_forward(cuda):
     """On the card ``TimedForward`` waits for the previous call's forward,
     not its own: after a call, only its own events are pending; reading
