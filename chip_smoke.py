@@ -16,7 +16,11 @@ past 2^31) and FlowNetwork's NCDHW ones, with and without the residual, and
 at the layouts its general path takes (C % 8 != 0, N * H * W % 8 != 0, a view
 not 16-byte aligned), each BN's scale and shift away from the identity, with
 its bound (bytes at the HBM rate), its twin's time and ATen's multiply, add,
-residual add and ReLU as the comparison.  Then it drives two paths:
+residual add and ReLU as the comparison.  The seventh, ``bn_act_pool`` (the
+same source: DDFFNet's BN-ReLU with the 2x2 max-pool after it), is held bit
+for bit to ``bn_act`` then ``F.max_pool3d`` on the card, and to its twin, at
+DDFFNet's five b32 sites (``bn_act_pool_rows``), with its bound, its twin's
+time and the two ops' time.  Then it drives two paths:
 
 * DFFNet (depth only): the goldens, the forward against the same model on
   the CPU, and serving synthetic 10 x 384 x 384 stacks through
@@ -27,7 +31,8 @@ residual add and ReLU as the comparison.  Then it drives two paths:
   and bf16;
 * DDFFNet: served through ``TimedForward`` at DDFF-12's 10 x 384 x 576, batch
   1, in fp32 and bf16, every count at 0 just before each: none of the five
-  kernels, ``bn_act`` once for each of its 25 eval BNs in bf16 and not at all
+  kernels; of its 25 eval BNs in bf16, the five that a max-pool reads one
+  launch each of ``bn_act_pool`` and the other 20 of ``bn_act``, and neither
   in fp32; finite outputs, and bf16's rms gap to fp32.
 
 Then it trains (``dffx_torch.train``): one step of DFFNet and of the
@@ -202,7 +207,8 @@ BF16_RTOL = {"mid": 0.15, "pred1": 0.12, "pred2": 0.06, "pred3": 0.05, "warped":
              "motion": 0.005}
 #: the CUDA kernels: each one's source and the TPU kernel it replaces
 #: (dffx/ops/pallas_kernels.py pallas_call sites), None for ``bn_act``, the
-#: 16-bit eval BN's pass: XLA fuses the JAX package's eval BN into the conv
+#: 16-bit eval BN's pass, and ``bn_act_pool``, the pass with the max-pool
+#: after it: XLA fuses the JAX package's eval BN into the conv
 KERNELS = {
     "fm_conv_bn_relu": ("dffx_torch/csrc/fm_conv.cu", "dffx/ops/pallas_kernels.py:144"),
     "rb2d_residual": ("dffx_torch/csrc/rb2d.cu", "dffx/ops/pallas_kernels.py:329"),
@@ -212,6 +218,7 @@ KERNELS = {
     "motion_head_conv_chain": ("dffx_torch/csrc/motion_head.cu",
                                "dffx/ops/pallas_kernels.py:508"),
     "bn_act": ("dffx_torch/csrc/bn_act.cu", None),
+    "bn_act_pool": ("dffx_torch/csrc/bn_act.cu", None),
 }
 #: the five that replace a TPU kernel, in fp32 and bf16 against their twins
 PORTED = tuple(name for name, (_, tpu) in KERNELS.items() if tpu)
@@ -285,8 +292,11 @@ FLOWNET_LAUNCHES = {"rb_of_chain": 3, "motion_head_conv_chain": 1}
 E2E_LAUNCHES = {**DFFNET_LAUNCHES, **FLOWNET_LAUNCHES}
 #: ``bn_act`` launches in one bf16 eval forward: every eval BN outside the five
 #: kernels (DFFNet 55 in either graph, FlowNetwork's stock layers 10, DDFFNet
-#: 25; tests/test_torch_bn_act.py counts them on the CPU); none in fp32 or training
-BN_PASSES = {"dffnet": 55, "flownet": 10, "e2e": 65, "ddffnet": 25}
+#: 20) but those a max-pool reads, which are ``bn_act_pool``'s (DDFFNet 5, the
+#: last of each encoder stage); tests/test_torch_bn_act.py counts both on the
+#: CPU; none in fp32 or training
+BN_PASSES = {"dffnet": 55, "flownet": 10, "e2e": 65, "ddffnet": 20}
+POOL_PASSES = {"ddffnet": 5}
 NET_LAUNCHES = {"dffnet": DFFNET_LAUNCHES, "flownet": FLOWNET_LAUNCHES, "e2e": E2E_LAUNCHES,
                 "ddffnet": {}}
 
@@ -296,7 +306,8 @@ def want_launches(net: str, dtype, forwards: int = 1) -> dict:
     ("dffnet", "flownet", "e2e", "ddffnet") in ``dtype`` (a torch dtype or its name)."""
     bf16 = str(dtype).split(".")[-1] in ("bfloat16", "bf16")
     return {**{k: v * forwards for k, v in NET_LAUNCHES[net].items()},
-            "bn_act": BN_PASSES[net] * forwards if bf16 else 0}
+            "bn_act": BN_PASSES[net] * forwards if bf16 else 0,
+            "bn_act_pool": POOL_PASSES.get(net, 0) * forwards if bf16 else 0}
 
 
 def add_launches(*wants: dict) -> dict:
@@ -525,6 +536,82 @@ def bn_act_rows(torch, tk, dev) -> dict:
     return {"float32": [], "bfloat16": cells}
 
 
+#: ``bn_act_pool`` rows: (tag, shape, keep).  DDFFNet's five BN-ReLU-then-pool
+#: sites of a b32 forward at 10 x 384 x 576, bf16 NDHWC, each the last conv of
+#: an encoder stage; conv3_3's BN-ReLU is kept (the CC3 concat's ``e3``)
+BN_ACT_POOL_CASES = (("ddffnet_conv1_2", (32, 64, 10, 384, 576), False),
+                     ("ddffnet_conv2_2", (32, 128, 10, 192, 288), False),
+                     ("ddffnet_conv3_3", (32, 256, 10, 96, 144), True),
+                     ("ddffnet_conv4_3", (32, 512, 10, 48, 72), False),
+                     ("ddffnet_conv5_3", (32, 512, 10, 24, 36), False))
+
+
+def bn_act_pool_rows(torch, tk, dev) -> dict:
+    """``bn_act_pool`` per BN_ACT_POOL_CASES on the card, x uniform in [-2,
+    2) and a BN folded away from the identity as in ``bn_act_rows``: the
+    pool (and with keep the BN-ReLU) bit for bit ``bn_act`` then
+    ``F.max_pool3d`` (the two ops it replaces), and its twin; one launch.
+    Each row gives its time, its twin's (``plain_ms``), the two ops'
+    (``aten_ms``) and its bound: x read, the pool (and with keep the BN-ReLU)
+    written, at the HBM rate.  The compared outputs are dropped before the
+    timings, so that the 9 GB conv1_2 row fits the card.  Returns the rows
+    under "bfloat16"."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(6)
+    gen = torch.Generator(dev).manual_seed(6)
+    cells = []
+
+    def bits(t):
+        return None if t is None else t.view(torch.int16)
+
+    for tag, shape, keep in BN_ACT_POOL_CASES:
+        x = torch.rand(shape, generator=gen, device=dev).mul_(4).sub_(2).bfloat16().contiguous(
+            memory_format=torch.channels_last_3d)
+        g, b, mu, va = (torch.from_numpy(a.astype("float32")) for a in (
+            rng.standard_normal(shape[1]), rng.standard_normal(shape[1]),
+            rng.standard_normal(shape[1]) * 0.1, rng.random(shape[1]) + 0.5))
+        scale, shift = (t.to(dev, torch.bfloat16) for t in tk.bn_fused_affine(g, b, mu, va))
+        check(tk.bn_act_pool_takes(x), f"bn_act_pool {tag}: not taken?")
+        before = tk.launches["bn_act_pool"]
+        y, pooled = tk.bn_act_pool(x, scale, shift, keep)
+        torch.cuda.synchronize()
+        check(tk.launches["bn_act_pool"] == before + 1, f"bn_act_pool {tag}: launches")
+        check(pooled.is_contiguous(memory_format=torch.channels_last_3d)
+              and (y is None) != keep, f"bn_act_pool {tag}: outputs")
+
+        def two_ops():
+            y2 = tk.bn_act(x, scale, shift, None, True)
+            return y2, F.max_pool3d(y2, (1, 2, 2))
+
+        y2, pooled2 = two_ops()
+        equal = torch.equal(bits(pooled), bits(pooled2)) and (
+            not keep or torch.equal(bits(y), bits(y2)))
+        err = 0.0 if equal else (pooled.float() - pooled2.float()).abs().max().item()
+        del y2, pooled2
+        y2, pooled2 = tk.bn_act_pool_ref(x, scale, shift, keep)
+        equal_twin = torch.equal(bits(pooled), bits(pooled2)) and (
+            not keep or torch.equal(bits(y), bits(y2)))
+        del y, pooled, y2, pooled2
+        torch.cuda.empty_cache()
+        ms = median_ms(lambda: tk.bn_act_pool(x, scale, shift, keep))
+        least_ms = x.nbytes * (2.25 if keep else 1.25) / HBM_BYTES_PER_S * 1e3
+        row = {"phase": "kernel", "kernel": "bn_act_pool", "shape": tag, "in": list(shape),
+               "keep": keep, "dtype": "bfloat16", "equal_to_two_ops": equal,
+               "equal_to_twin": equal_twin, "max_abs_err": err, "ms": ms,
+               "plain_ms": median_ms(lambda: tk.bn_act_pool_ref(x, scale, shift, keep)),
+               "aten_ms": median_ms(two_ops), "bound_ms": least_ms, "bound_by": "bytes",
+               "ms_over_bound": ms / least_ms}
+        emit(row)
+        check(equal and equal_twin, f"bn_act_pool {tag}: not bn_act then F.max_pool3d "
+                                    f"({err}) or not its twin ({equal_twin})")
+        cells.append(row)
+        del x
+        torch.cuda.empty_cache()
+    return {"float32": [], "bfloat16": cells}
+
+
 def fm_conv_library(torch, tk, dev) -> dict:
     """``torch.cudnn_convolution_relu`` on the BN-folded weight and shift: the
     one PyTorch call that computes ``fm_conv_bn_relu``'s function, at the
@@ -572,7 +659,8 @@ def kernel_entry(name: str, rows: dict, launches: int, train_launches: int,
     (rb_of_chain's three pyramid levels) also lists each under ``levels``;
     ``bf16``: its bf16 rows there, summed the same way (``bn_act``: no fp32
     rows, and its bf16 rows at the three b32 serving cells' shapes, with ATen's
-    time as ``aten_ms``).  ``launches``: in the
+    time as ``aten_ms``; ``bn_act_pool``: its rows at DDFFNet's five b32
+    sites, with ``bn_act`` then ``F.max_pool3d`` as ``aten_ms``).  ``launches``: in the
     end-to-end serving run; ``train_launches``: in every train step (one process and data
     parallel); ``cli_launches``: in each command line's measured run
     (``train_cli`` and ``dp_train_cli``: their validation forwards);
@@ -589,7 +677,7 @@ def kernel_entry(name: str, rows: dict, launches: int, train_launches: int,
              "train_launches": train_launches, "cli_launches": cli_launches,
              "spatial_launches": spatial_launches, "headline_launches": headline_launches,
              "library_ms": None if library is None else library["library_ms"]}
-    if rows:  # bn_act has no fp32
+    if rows:  # bn_act and bn_act_pool have no fp32
         entry.update({"max_abs_err": max(r["max_abs_err"] for r in rows),
                       "ms": sum(r["ms"] for r in rows),
                       "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -1751,6 +1839,8 @@ HALO_ROWS = 16  # dffx_torch.ops.halo.HALO
 #: at the edge rows of each chain that splits, 3 in DFFNet and 12 in E2E (the
 #: same on every rank, and on the CPU under ``profiling.collect()``)
 SPATIAL_BN_PASSES = {"dffnet": 58, "e2e": 77}
+#: kernels that no network of the spatial cases launches: DDFFNet's pool pass
+SPATIAL_IDLE = ("bn_act_pool",)
 #: a sharded chain against the same chain whole on the same input, and the
 #: sharded forward against the whole forward with the same edge rows patched
 #: in: a share of the largest value (bf16 keeps 8 bits)
@@ -2324,7 +2414,8 @@ def phase_spatial(torch, np, tk, dev, smi) -> dict:
         key = f"{case['case']}_{'x'.join(map(str, case['shape'][2:]))}_{case['dtype']}"
         for name in KERNELS:
             per_kernel[name][key] = case["launches"][name]
-    check(all(any(v.values()) for v in per_kernel.values()), "spatial: a kernel never launched")
+    check(all(any(v.values()) for k, v in per_kernel.items() if k not in SPATIAL_IDLE),
+          "spatial: a kernel never launched")
     return per_kernel
 
 
@@ -2434,6 +2525,7 @@ def main() -> int:
     # 3. each kernel against its twin on the card
     path_rows = phase_kernels(torch, tk, dev)
     path_rows["bn_act"] = bn_act_rows(torch, tk, dev)
+    path_rows["bn_act_pool"] = bn_act_pool_rows(torch, tk, dev)
 
     # 4. DFFNet: goldens through the GPU forward, kernels included; on the
     # default graph, and through the packed one whatever the default
@@ -2570,7 +2662,8 @@ def main() -> int:
 
     # 10. DDFFNet served at DDFF-12's padded shape, b1, fp32 then bf16, each
     # with every count at 0 just before it: bf16 applies its 25 eval BNs
-    # through bn_act, and no forward launches any of the five kernels
+    # through bn_act (20) and bn_act_pool (the 5 a max-pool reads), and no
+    # forward launches any of the five kernels
     ddff = load_params_auto(0, device=dev, arch="ddffnet")
     fs = torch.from_numpy(rng.uniform(-1, 1, (1, 10, H, DW, 3)).astype(np.float32))
     preds, launched = {}, {}

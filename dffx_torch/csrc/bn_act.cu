@@ -33,6 +33,22 @@
 // channel of its first value by one division and steps from there.
 // x, z and y are dense in the same layout (ops/kernels.py::bn_act_layout
 // checks that before the launch); y is laid out as x.
+//
+// bn_act_pool: DDFFNet's BN-ReLU that a 2x2 max-pool reads, with the pool, in
+// one pass over an NDHWC x (C % 8 == 0, H and W even):
+//   p[b, c, n, i, j] = max over (h, w) in {2i, 2i+1} x {2j, 2j+1} of
+//                      relu(x[b, c, n, h, w] * scale[c] + shift[c])
+// Each of the four values is bn_act's (one fmaf, the ReLU, one rounding); the
+// window is scanned as ATen's max_pool3d scans it (h, then w; a value is taken
+// where it is greater than the max so far or NaN), so p is bit for bit bn_act
+// then F.max_pool3d, signed zeros and NaN included, and no index is written.
+// With keep the four rounded vectors are stored too (y, laid out as x).  What
+// bounds it is HBM: x read once, p written once (and y with keep), against
+// bn_act's y written and read again and the pool's int64 indices.  A thread
+// takes one 8-channel group of one output pixel: four 16-byte loads (rows 2i
+// and 2i + 1, two adjacent pixels each, which a warp's neighbours fill out to
+// whole sectors) and one 16-byte store; it tracks (row, column, group) as it
+// strides the grid, with no division in the loop.
 #include <cuda_fp16.h>
 
 #include "common.cuh"
@@ -254,6 +270,121 @@ cudaError_t dispatch(const void* x, const void* z, void* y, const void* scale, c
               : launch<T, false, false>(x, z, y, scale, shift, numel, c, inner, ndhwc, blocks, s);
 }
 
+// relu(x * s + b) of 8 values, rounded as apply rounds them
+template <typename T>
+__device__ __forceinline__ uint4 bn_relu8(const uint4& raw, const float* s, const float* b) {
+  float f[8];
+  Pack<T>::widen(raw, f);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float v = fmaf(f[k], s[k], b[k]);
+    f[k] = v < 0.f ? 0.f : v;
+  }
+  return Pack<T>::narrow(f);
+}
+
+// ATen's max_pool3d step on 8 values: m takes v where v > m or v is NaN
+template <typename T>
+__device__ __forceinline__ void max8(uint4& m, const uint4& v) {
+  T* mp = reinterpret_cast<T*>(&m);
+  const T* vp = reinterpret_cast<const T*>(&v);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float a = Pack<T>::to_float(vp[k]);
+    if (a > Pack<T>::to_float(mp[k]) || isnan(a)) mp[k] = vp[k];
+  }
+}
+
+// rows = B * N * H / 2 output rows of wo = W / 2 pixels, groups = C / 8
+template <typename T, bool KEEP>
+__global__ void __launch_bounds__(kThreads)
+    bn_act_pool_ndhwc_kernel(const T* __restrict__ x, T* __restrict__ y, T* __restrict__ p,
+                             const T* __restrict__ scale, const T* __restrict__ shift,
+                             int64_t rows, int wo, int groups) {
+  extern __shared__ float4 affine4[];  // scale[C] then shift[C], fp32
+  float* affine = reinterpret_cast<float*>(affine4);
+  const int c = groups * 8;
+  for (int i = threadIdx.x; i < c; i += blockDim.x) {
+    affine[i] = Pack<T>::to_float(scale[i]);
+    affine[c + i] = Pack<T>::to_float(shift[i]);
+  }
+  __syncthreads();
+  // the grid's step and this thread's first vector as (row, column, group)
+  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int sg = static_cast<int>(step % groups);
+  const int sj = static_cast<int>(step / groups % wo);
+  const int64_t sr = step / groups / wo;
+  const int64_t v = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  int g = static_cast<int>(v % groups);
+  int j = static_cast<int>(v / groups % wo);
+  int64_t r = v / groups / wo;
+  const int64_t in_row = 2 * static_cast<int64_t>(wo) * c;  // values of one input row
+  while (r < rows) {
+    const int64_t in = 2 * r * in_row + 2 * static_cast<int64_t>(j) * c + 8 * g;
+    const uint4 x00 = *reinterpret_cast<const uint4*>(x + in);
+    const uint4 x01 = *reinterpret_cast<const uint4*>(x + in + c);
+    const uint4 x10 = *reinterpret_cast<const uint4*>(x + in + in_row);
+    const uint4 x11 = *reinterpret_cast<const uint4*>(x + in + in_row + c);
+    const float4* s4 = affine4 + 2 * g;
+    const float4* b4 = affine4 + 2 * (groups + g);
+    const float4 s0 = s4[0], s1 = s4[1], b0 = b4[0], b1 = b4[1];
+    const float s[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+    const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    const uint4 y00 = bn_relu8<T>(x00, s, b), y01 = bn_relu8<T>(x01, s, b);
+    const uint4 y10 = bn_relu8<T>(x10, s, b), y11 = bn_relu8<T>(x11, s, b);
+    if (KEEP) {
+      *reinterpret_cast<uint4*>(y + in) = y00;
+      *reinterpret_cast<uint4*>(y + in + c) = y01;
+      *reinterpret_cast<uint4*>(y + in + in_row) = y10;
+      *reinterpret_cast<uint4*>(y + in + in_row + c) = y11;
+    }
+    uint4 m = y00;
+    max8<T>(m, y01);
+    max8<T>(m, y10);
+    max8<T>(m, y11);
+    *reinterpret_cast<uint4*>(p + (r * wo + j) * c + 8 * g) = m;
+    g += sg;
+    if (g >= groups) {
+      g -= groups;
+      ++j;
+    }
+    j += sj;
+    if (j >= wo) {
+      j -= wo;
+      ++r;
+    }
+    r += sr;
+  }
+}
+
+// as many blocks as the SMs hold at once (a grid-stride loop: a block beyond
+// that would run as a second wave behind the first)
+template <typename T, bool KEEP>
+cudaError_t launch_pool(const void* x, void* y, void* p, const void* scale, const void* shift,
+                        int64_t rows, int wo, int c, int sms, cudaStream_t s) {
+  const auto kernel = bn_act_pool_ndhwc_kernel<T, KEEP>;
+  const size_t smem = 2 * static_cast<size_t>(c) * sizeof(float);
+  int per_sm = 0;
+  cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int64_t need = (rows * wo * (c / 8) + kThreads - 1) / kThreads;
+  const int64_t most = static_cast<int64_t>(sms) * per_sm;
+  const int grid = static_cast<int>(need < most ? need : most);
+  kernel<<<grid, kThreads, smem, s>>>(static_cast<const T*>(x), static_cast<T*>(y),
+                                      static_cast<T*>(p), static_cast<const T*>(scale),
+                                      static_cast<const T*>(shift), rows, wo, c / 8);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_pool(const void* x, void* y, void* p, const void* scale, const void* shift,
+                          int64_t rows, int wo, int c, int sms, cudaStream_t s) {
+  return y != nullptr ? launch_pool<T, true>(x, y, p, scale, shift, rows, wo, c, sms, s)
+                      : launch_pool<T, false>(x, y, p, scale, shift, rows, wo, c, sms, s);
+}
+
 }  // namespace
 
 // x, z (nullptr: no residual), y: numel values of a dense (B, C, ...) tensor,
@@ -270,5 +401,24 @@ extern "C" int dffx_bn_act(const void* x, const void* z, void* y, const void* sc
     return dispatch<__nv_bfloat16>(x, z, y, scale, shift, numel, C, inner, ndhwc, relu, blocks, s);
   if (dtype == DFFX_DTYPE_F16)
     return dispatch<__half>(x, z, y, scale, shift, numel, C, inner, ndhwc, relu, blocks, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// x: an NDHWC (B, C, N, H, W) tensor, rows = B * N * H / 2, wo = W / 2, C % 8
+// == 0; p: its (B, C, N, H / 2, W / 2) pool, NDHWC; y (nullptr: not kept): the
+// BN-ReLU, laid out as x; scale, shift: C values in the activation dtype; sms:
+// the card's SMs.  x, y and p 16-byte aligned.
+extern "C" int dffx_bn_act_pool(const void* x, void* y, void* p, const void* scale,
+                                const void* shift, long long rows, int wo, int C, int sms,
+                                int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y) |
+                         reinterpret_cast<uintptr_t>(p);
+  if (rows <= 0 || wo <= 0 || C <= 0 || C % 8 || C > kSmemChannels || sms <= 0 || addr % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == DFFX_DTYPE_BF16)
+    return dispatch_pool<__nv_bfloat16>(x, y, p, scale, shift, rows, wo, C, sms, s);
+  if (dtype == DFFX_DTYPE_F16)
+    return dispatch_pool<__half>(x, y, p, scale, shift, rows, wo, C, sms, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

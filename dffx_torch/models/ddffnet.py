@@ -35,7 +35,9 @@ writes cuDNN's own layout; NCDHW otherwise.  On NDHWC the convs and upconvs
 run as 2-D ops over the B * N slices (``layers.SliceConv2d``,
 ``ops/conv.py::deconv3d``), which cuDNN's 2-D heuristics serve better than
 its 3-D ones the ``(1, k, k)`` conv3ds they compute.  Each eval BN runs with
-its ReLU as one pass (``ops/norm.py::affine_act``).
+its ReLU as one pass (``ops/norm.py::affine_act``); the last of each encoder
+stage with the stage's max-pool too (``ops/norm.py::affine_act_pool``), so
+that the BN-ReLU's output is written only where the CC3 concat keeps it.
 
 The forward is three spans (``utils/profiling.py``) over contiguous code:
 ``ddffnet.encode`` (the transpose in, the 13 convs and the 5 pools),
@@ -56,6 +58,7 @@ from dffx_torch.models.layers import (BatchNorm3d, Conv3d, ConvTranspose3d, Slic
                                       init_module_params, unit_depth_weights)
 from dffx_torch.ops import max_pool3d
 from dffx_torch.ops.conv import activation_format
+from dffx_torch.ops.norm import affine_act_pool
 from dffx_torch.utils import profiling
 
 #: the encoder's stages, each a list of (conv, Cin, Cout) ended by a 2x2 pool
@@ -115,6 +118,19 @@ class DDFFNet(nn.Module):
             x = getattr(self, f"{name}_bn")(getattr(self, name)(x), relu=True)
         return x
 
+    def _run_pooled(self, x, convs, keep: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+        """An encoder stage: its conv-BN-ReLUs, then the 2x2 max-pool;
+        returns (the last BN-ReLU's output where ``keep``, else None; the
+        pool's).  In eval the last BN, its ReLU and the pool are one call of
+        ``affine_act_pool``."""
+        x = self._run(x, convs[:-1])
+        name = convs[-1][0]
+        x, bn = getattr(self, name)(x), getattr(self, f"{name}_bn")
+        if bn.training:
+            y = bn(x, relu=True)
+            return y, max_pool3d(y, (1, 2, 2))
+        return affine_act_pool(x, *bn.fused_affine(x.dtype), keep=keep)
+
     def forward(self, fs: torch.Tensor, focus_dists: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """fs ``(B, N, H, W, 3)`` in [-1, 1], N the network's
@@ -132,10 +148,9 @@ class DDFFNet(nn.Module):
             x = fs.permute(0, 4, 1, 2, 3)  # (B, 3, N, H, W): a view, laid out NDHWC
             x = x.contiguous(memory_format=activation_format(x, self.training))
             for i, stage in enumerate(ENCODER):
-                x = self._run(x, stage)
+                y, x = self._run_pooled(x, stage, keep=i == CC3_STAGE)
                 if i == CC3_STAGE:
-                    e3 = x
-                x = max_pool3d(x, (1, 2, 2))
+                    e3 = y
 
         with profiling.span("ddffnet.decode", fs.device):
             for up, _, convs in DECODER:

@@ -18,7 +18,9 @@
 * ``softmax_argmax``            — DFV's softmax over N -> depth and its spread
 * ``kernels``                   — the CUDA kernels and their plain twins: the five
                                   ported ones and the eval BN's one pass (``bn_act``,
-                                  which ``norm.affine_act`` sends 16-bit eval BNs to)
+                                  which ``norm.affine_act`` sends 16-bit eval BNs to;
+                                  ``bn_act_pool`` with a 2x2 max-pool after it,
+                                  ``norm.affine_act_pool``'s)
 * ``halo``                      — the kernels' chains H-sharded over a spatial group
 
 Every name of ``dffx.ops.__all__`` is here; the warps keep ``dffx``'s layout,

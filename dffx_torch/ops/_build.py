@@ -46,6 +46,8 @@ SIGNATURES = {
     "dffx_motion_head_conv_chain": [_P] * 3 + [_I] * 7 + [_P],
     # x, z, y, scale, shift, numel, C, inner, ndhwc, relu, blocks, dtype, stream
     "dffx_bn_act": [_P] * 5 + [_L, _I, _L] + [_I] * 4 + [_P],
+    # x, y, p, scale, shift, rows, wo, C, sms, dtype, stream
+    "dffx_bn_act_pool": [_P] * 5 + [_L] + [_I] * 4 + [_P],
 }
 
 

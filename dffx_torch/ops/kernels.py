@@ -17,10 +17,14 @@ Two are the FlowNetwork alignment front end's (``dffx/models/alignnet.py``):
 One more replaces no Pallas kernel: ``bn_act`` applies a 16-bit eval
 BatchNorm's folded affine, with the residual add and the ReLU after it, in one
 pass (``ops/norm.py::affine_act`` sends each eval BN of the stock layers to
-it), where ATen would make up to four passes.
+it), where ATen would make up to four passes; ``bn_act_pool``, from the same
+source, applies it with the ReLU and the 2x2 max-pool that reads it
+(``ops/norm.py::affine_act_pool``, DDFFNet's encoder), bit for bit ``bn_act``
+then ``F.max_pool3d``.
 
 The five take and return torch's ``(B, C, N, H, W)`` layout, fp32 or bf16
-activations (``bn_act``: bf16 or fp16, any dense layout); weights are
+activations (``bn_act``: bf16 or fp16, any dense layout; ``bn_act_pool``:
+bf16 or fp16 NDHWC); weights are
 torch-layout ``(Cout, Cin, kd, kh, kw)``, and eval BN comes folded into fp32
 ``(scale, shift)`` pairs (``bn_fused_affine``).
 
@@ -61,6 +65,9 @@ __all__ = [
     "bn_act",
     "bn_act_ref",
     "bn_act_layout",
+    "bn_act_pool",
+    "bn_act_pool_ref",
+    "bn_act_pool_takes",
     "mma_conv_layout",
     "head_conv0_layout",
     "pair_conv0_layout",
@@ -91,7 +98,7 @@ OFBlock = Tuple[torch.Tensor, Affine, torch.Tensor, Affine, torch.Tensor]
 
 #: kernel launches per wrapper since the last ``reset_launches()``
 launches = {"fm_conv_bn_relu": 0, "rb2d_residual": 0, "srd_attention_residual": 0,
-            "rb_of_chain": 0, "motion_head_conv_chain": 0, "bn_act": 0}
+            "rb_of_chain": 0, "motion_head_conv_chain": 0, "bn_act": 0, "bn_act_pool": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # DFFX_DTYPE_* in csrc/common.cuh
 _KERNEL_CHANNELS = (8, 16, 32)
@@ -974,3 +981,72 @@ def bn_act(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     _raise_on(err, "bn_act")
     launches["bn_act"] += 1
     return y
+
+
+# --------------------------------------------------------------------------
+# bn_act_pool
+# --------------------------------------------------------------------------
+
+#: the widest C whose fp32 affine the kernel keeps in shared memory
+#: (``kSmemChannels`` in csrc/bn_act.cu)
+_POOL_CHANNELS = 6144
+
+
+def bn_act_pool_takes(x: torch.Tensor) -> bool:
+    """Whether ``bn_act_pool``'s kernel reads ``x``: a bf16 or fp16 ``(B, C,
+    N, H, W)`` tensor dense with the channel innermost (NDHWC), C a multiple
+    of 8 of at most 6,144, H and W even, 16-byte aligned."""
+    return (x.dim() == 5 and x.dtype in _HALF_DTYPES and x.numel() > 0 and _channels_last(x)
+            and x.shape[1] % 8 == 0 and x.shape[1] <= _POOL_CHANNELS
+            and x.shape[3] % 2 == 0 and x.shape[4] % 2 == 0 and x.data_ptr() % 16 == 0)
+
+
+def bn_act_pool_ref(x, scale, shift, keep: bool = False):
+    """Plain twin of ``bn_act_pool``: ``bn_act_ref`` with the ReLU, then
+    ``F.max_pool3d`` over (1, 2, 2)."""
+    y = bn_act_ref(x, scale, shift, relu=True)
+    return (y if keep else None), F.max_pool3d(y, (1, 2, 2))
+
+
+def bn_act_pool(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                keep: bool = False):
+    """``relu(x * scale + shift)`` and its (1, 2, 2) max-pool in one pass:
+    returns ``(y, pooled)``, ``y`` the BN-ReLU where ``keep``, else None (the
+    kernel does not write it).
+
+    x as ``bn_act_pool_takes`` says, anything else raises; scale/shift
+    ``(C,)``, rounded to x's dtype as ``bn_act`` rounds them.  Each value is
+    ``bn_act``'s and the pool takes ATen's max (greater, or NaN, in (h, w)
+    order), so both outputs are bit for bit ``bn_act`` then ``F.max_pool3d``;
+    both are NDHWC."""
+    if not bn_act_pool_takes(x):
+        raise ValueError(
+            f"bn_act_pool takes bf16 or fp16 (B, C, N, H, W) tensors dense with the channel "
+            f"innermost, C a multiple of 8 up to {_POOL_CHANNELS}, H and W even, 16-byte "
+            f"aligned; got {tuple(x.shape)} {x.dtype} strides {x.stride()}")
+    b, c, n, h, w = x.shape
+    _check_param(scale, (c,), "scale")
+    _check_param(shift, (c,), "shift")
+    if x.device.type == "cpu":
+        return bn_act_pool_ref(x, scale, shift, keep)
+    if x.device.type != "cuda":
+        raise _unsupported(x)
+    if cuts_gradients(True, torch.is_grad_enabled(),
+                      (t.requires_grad for t in (x, scale, shift))):
+        raise RuntimeError("bn_act_pool: the CUDA kernel has no backward, and its input or "
+                           "affine requires grad with grad enabled; call it under "
+                           "torch.no_grad() or inference_mode()")
+    _same_device(x, scale, shift)
+    scale, shift = scale.to(x.dtype).contiguous(), shift.to(x.dtype).contiguous()
+    pooled = torch.empty((b, c, n, h // 2, w // 2), dtype=x.dtype, device=x.device,
+                         memory_format=torch.channels_last_3d)
+    y = torch.empty_like(x) if keep else None
+    with torch.cuda.device(x.device):
+        err = _build.library().dffx_bn_act_pool(
+            x.data_ptr(), None if y is None else y.data_ptr(), pooled.data_ptr(),
+            scale.data_ptr(), shift.data_ptr(), b * n * (h // 2), w // 2, c,
+            _sm_count(x.device), _HALF_DTYPES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, "bn_act_pool")
+    launches["bn_act_pool"] += 1
+    return y, pooled

@@ -6,6 +6,9 @@
   (``batch_norm``), or by ``affine_act`` with a residual add and a ReLU after
   it: for a 16-bit activation outside autograd in one pass of
   ``kernels.bn_act``, else (fp32, or autograd recording) as ATen's ops;
+  ``affine_act_pool`` adds the 2x2 max-pool that reads a BN-ReLU (DDFFNet's
+  encoder), in one pass of ``kernels.bn_act_pool`` where that kernel reads
+  the activation, else as ``affine_act`` then ``max_pool3d``;
 * train: normalize with the biased batch variance ``E[x^2] - mean^2`` (one
   pass, fp32, or float64 for float64 activations, over every axis but C),
   and update the running statistics at momentum 0.1 with the unbiased
@@ -21,10 +24,11 @@ statistics of the global batch, whatever rows each rank holds (``dffx``'s
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from dffx_torch.ops.pool import max_pool3d
 from dffx_torch.parallel.distributed import all_reduce_
 from dffx_torch.utils import profiling
 
@@ -84,6 +88,37 @@ def affine_act(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, *, z=N
     if z is not None:
         y = y + z
     return torch.relu(y) if relu else y
+
+
+def takes_pool_pass(x: torch.Tensor, scale, shift) -> bool:
+    """Whether ``affine_act_pool`` runs ``kernels.bn_act_pool``'s one pass:
+    where ``takes_pass`` sends the BN to a pass (16-bit, no autograd
+    recording) and the kernel reads ``x`` (``kernels.bn_act_pool_takes``:
+    NDHWC, C % 8 == 0, H and W even, aligned)."""
+    from dffx_torch.ops import kernels  # kernels imports this module
+
+    return takes_pass(x, scale, shift) and kernels.bn_act_pool_takes(x)
+
+
+def affine_act_pool(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, *,
+                    keep: bool = False) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """An eval BatchNorm's folded affine and the ReLU after it, then the
+    (1, 2, 2) max-pool of the result: ``(y, max_pool3d(y, (1, 2, 2)))`` with
+    ``y = relu(x * scale + shift)`` where ``keep``, else ``(None, ...)``.
+    Where ``takes_pool_pass`` says so, ``kernels.bn_act_pool`` (a CUDA kernel,
+    or its twin on the CPU) computes both in one pass, bit for bit what the two
+    ops give, and the counters ``stock.bn_fused`` and ``stock.pool_fused``
+    add one; otherwise ``affine_act`` (which counts the BN) then
+    ``max_pool3d`` (which counts ``stock.pool_aten``)."""
+    if takes_pool_pass(x, scale, shift):
+        from dffx_torch.ops import kernels
+
+        y, pooled = kernels.bn_act_pool(x, scale, shift, keep)
+        profiling.count("stock.bn_fused")
+        profiling.count("stock.pool_fused")
+        return y, pooled
+    y = affine_act(x, scale, shift, relu=True)
+    return (y if keep else None), max_pool3d(y, (1, 2, 2))
 
 
 class _SumOverRanks(torch.autograd.Function):

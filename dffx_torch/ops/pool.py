@@ -12,13 +12,17 @@ import torch.nn.functional as F
 from torch.nn.modules.utils import _triple
 
 from dffx_torch.ops.conv import is_ndhwc, per_slice
+from dffx_torch.utils import profiling
 
 
 def max_pool3d(x: torch.Tensor, window, stride=None) -> torch.Tensor:
-    """``nn.MaxPool3d(window, stride)``, no padding.  ``F.max_pool3d`` keeps
-    an NDHWC input NDHWC, on the card and on the CPU; for DDFFNet's five
-    (1, 2, 2) pools of a b32 forward it took 37.7 ms on an H100 against 46.0
-    for ``F.max_pool2d`` on each slice's channels-last view (PERF.md §6)."""
+    """``nn.MaxPool3d(window, stride)``, no padding, counted as
+    ``stock.pool_aten``.  ``F.max_pool3d`` keeps an NDHWC input NDHWC, on the
+    card and on the CPU; for DDFFNet's five (1, 2, 2) pools of a b32 forward
+    it took 37.7 ms on an H100 against 46.0 for ``F.max_pool2d`` on each
+    slice's channels-last view (PERF.md §6).  A 16-bit eval forward of
+    DDFFNet pools in ``norm.affine_act_pool``'s one pass instead."""
+    profiling.count("stock.pool_aten")
     return F.max_pool3d(x, window, stride if stride is not None else window)
 
 

@@ -1,8 +1,9 @@
 """The 16-bit eval BatchNorm's one pass on the CPU: ``kernels.bn_act``'s
 plain twin against float64 arithmetic rounded once, the layouts the pass
 takes, the gate (``ops/norm.py::affine_act``), and bf16 eval forwards of
-DFFNet (packed and unpacked), the end-to-end network and DFV, in which every
-eval BN outside the hand kernels takes the pass.
+DFFNet (packed and unpacked), the end-to-end network, DFV and DDFFNet, in
+which every eval BN outside the hand kernels takes the pass (DDFFNet's last
+BN of each encoder stage the pass with its max-pool, ``bn_act_pool``).
 
 The twin computes as the CUDA kernel does (``csrc/bn_act.cu``): the product
 of two 16-bit values is exact in fp32, the shift and the residual are added
@@ -16,6 +17,7 @@ from pathlib import Path
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 import torch_fixtures as fx
 from dfv_reference import DFVReference, port_state_dict
@@ -93,14 +95,19 @@ def _ulp(v: torch.Tensor, dtype) -> torch.Tensor:
     return info.eps * torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(info.tiny))))
 
 
-def _within_roundings(got, aten, x, scale, shift, z) -> bool:
-    """|got - aten| within the roundings ATen makes and the pass does not."""
+def _rounding_bound(x, scale, shift, z) -> torch.Tensor:
+    """The roundings ATen makes and the pass does not, a value each."""
     view = (1, -1, 1, 1, 1)
     prod = x.double() * scale.double().view(view)
     terms = [prod.abs(), prod.abs() + shift.double().abs().view(view)]
     if z is not None:
         terms.append(terms[-1] + z.double().abs())
-    bound = sum(_ulp(t, x.dtype) for t in terms)
+    return sum(_ulp(t, x.dtype) for t in terms)
+
+
+def _within_roundings(got, aten, x, scale, shift, z) -> bool:
+    """|got - aten| within the roundings ATen makes and the pass does not."""
+    bound = _rounding_bound(x, scale, shift, z)
     return bool(((got.double() - aten.double()).abs() <= bound).all())
 
 
@@ -190,6 +197,9 @@ NETWORKS = {"dffnet_packed": ({"packed": True}, (1, 4, 64, 96)),
 BNS = {"dffnet_packed": 55, "dffnet_unpacked": 55, "e2e": 65, "dfv": 61, "ddffnet": 25}
 #: networks with no residual add after a BN
 NO_RESIDUAL = {"ddffnet"}
+#: of those, the BNs applied with the 2x2 max-pool after them in one pass
+#: (``bn_act_pool``): the last of each of DDFFNet's five encoder stages
+POOLED = {"ddffnet": 5}
 
 
 def _net(name: str, seed: int = 0):
@@ -235,26 +245,33 @@ def _rms(a, b) -> float:
 @pytest.fixture(scope="module")
 def forwards():
     """Each network's bf16 eval forward with the pass (every call of the
-    pass recorded), with the gate forced off, and in fp32."""
+    pass and of the pass with the pool recorded, each as a dict of its
+    operands and outputs), with the gate forced off, and in fp32."""
     runs = {}
     for name in NETWORKS:
         net = _net(name).eval()
         calls, bn_calls = [], []
         hooks = [m.register_forward_hook(lambda *a: bn_calls.append(1))
                  for m in net.modules() if isinstance(m, BatchNorm3d)]
-        real = tk.bn_act
+        real, real_pool = tk.bn_act, tk.bn_act_pool
 
         def recording(x, scale, shift, z=None, relu=False, _real=real):
             y = _real(x, scale, shift, z, relu)
-            calls.append((x, scale, shift, z, relu, y))
+            calls.append({"x": x, "scale": scale, "shift": shift, "z": z, "relu": relu, "y": y})
             return y
 
+        def recording_pool(x, scale, shift, keep=False, _real=real_pool):
+            y, pooled = _real(x, scale, shift, keep)
+            calls.append({"x": x, "scale": scale, "shift": shift, "z": None, "relu": True,
+                          "y": y, "pooled": pooled})
+            return y, pooled
+
         with torch.no_grad():
-            tk.bn_act = recording
+            tk.bn_act, tk.bn_act_pool = recording, recording_pool
             try:
                 fused, counted = _counted(net, _inputs(name, torch.bfloat16))
             finally:
-                tk.bn_act = real
+                tk.bn_act, tk.bn_act_pool = real, real_pool
             for h in hooks:
                 h.remove()
             takes_pass = norm.takes_pass
@@ -275,14 +292,16 @@ def test_every_eval_bn_takes_the_pass(forwards, name):
     run = forwards[name]
     packed = any(isinstance(m, DFFNet) and m.packed for m in run["net"].modules())
     packed_affines = 3 if packed else 0  # the packed stage's, applied from packed affines
-    assert run["bn_modules"] + packed_affines == BNS[name]
+    pooled = POOLED.get(name, 0)  # applied from the module's affine with the pool
+    assert run["bn_modules"] + packed_affines + pooled == BNS[name]
     assert run["counted"] == {"stock.bn_fused": BNS[name]} == {"stock.bn_fused": len(run["calls"])}
+    assert sum("pooled" in c for c in run["calls"]) == pooled
     assert run["aten_counted"] == {"stock.bn_aten": BNS[name]}
 
 
 def test_chip_smoke_expects_the_passes_counted_here():
-    """``chip_smoke.py`` holds the card's ``bn_act`` launches, a bf16 forward,
-    to the counts these forwards show."""
+    """``chip_smoke.py`` holds the card's ``bn_act`` and ``bn_act_pool``
+    launches, a bf16 forward, to the counts these forwards show."""
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     try:
         import chip_smoke
@@ -291,23 +310,36 @@ def test_chip_smoke_expects_the_passes_counted_here():
     assert BNS["dffnet_packed"] == BNS["dffnet_unpacked"]
     assert chip_smoke.BN_PASSES == {"dffnet": BNS["dffnet_packed"], "e2e": BNS["e2e"],
                                     "flownet": BNS["e2e"] - BNS["dffnet_packed"],
-                                    "ddffnet": BNS["ddffnet"]}
+                                    "ddffnet": BNS["ddffnet"] - POOLED["ddffnet"]}
+    assert chip_smoke.POOL_PASSES == POOLED
 
 
 @pytest.mark.parametrize("name", list(NETWORKS))
 def test_each_pass_is_atens_ops_within_their_roundings(forwards, name):
     """At every site of the forward, on the operands it got there: the pass
-    (residual and ReLU as the site asks) against ATen's ops."""
-    relu_sites = residual_sites = 0
-    for x, scale, shift, z, relu, y in forwards[name]["calls"]:
+    (residual and ReLU as the site asks) against ATen's ops; the pass with
+    the pool against ATen's ops then ``F.max_pool3d``, within the largest
+    bound of each window (a max of values each within its bound of ATen's
+    lies within the largest of them of ATen's max), and its kept output
+    within each value's."""
+    relu_sites = residual_sites = pooled_sites = 0
+    for call in forwards[name]["calls"]:
+        x, scale, shift, z, relu, y = (call[k] for k in ("x", "scale", "shift", "z", "relu", "y"))
         view = (1, -1, 1, 1, 1)
         aten = x * scale.view(view) + shift.view(view)
         aten = aten if z is None else aten + z
         aten = torch.relu(aten) if relu else aten
-        assert _within_roundings(y, aten, x, scale, shift, z)
+        if "pooled" in call:
+            bound = F.max_pool3d(_rounding_bound(x, scale, shift, z), (1, 2, 2))
+            gap = (call["pooled"].double() - F.max_pool3d(aten, (1, 2, 2)).double()).abs()
+            assert bool((gap <= bound).all())
+            pooled_sites += 1
+        if y is not None:
+            assert _within_roundings(y, aten, x, scale, shift, z)
         relu_sites += relu
         residual_sites += z is not None
     assert relu_sites > 0 and (residual_sites > 0) == (name not in NO_RESIDUAL)
+    assert pooled_sites == POOLED.get(name, 0)
 
 
 @pytest.mark.parametrize("name", list(NETWORKS))

@@ -18,9 +18,10 @@ pytestmark = pytest.mark.gpu
 SHAPES = [(1, 3, 64, 96), (2, 1, 40, 72), (1, 2, 7, 5)]  # (b, n, h, w); ragged edges
 DFFNET_KERNELS = ("fm_conv_bn_relu", "rb2d_residual", "srd_attention_residual")
 #: launches of each kernel in one fp32 E2E forward: three pyramid chains, one
-#: head, and no BN pass (fp32 eval BN stays on ATen's ops)
+#: head, and no BN pass (fp32 eval BN stays on ATen's ops; the pass with the
+#: pool is DDFFNet's alone)
 E2E_LAUNCHES = {"fm_conv_bn_relu": 1, "rb2d_residual": 1, "srd_attention_residual": 1,
-                "rb_of_chain": 3, "motion_head_conv_chain": 1, "bn_act": 0}
+                "rb_of_chain": 3, "motion_head_conv_chain": 1, "bn_act": 0, "bn_act_pool": 0}
 CHAINS = [((3, 8), (8, 8)), ((16, 16),), ((32, 32),)]
 #: bf16 pred3 of a DFFNet forward kept NDHWC against the same forward kept
 #: NCDHW, over pred3's largest value: 2^-5, four bf16 units in the last place
@@ -566,6 +567,11 @@ def _kernel_call(rng, name, dev):
         x = _act(rng, (1, 16, 2, 16, 24), dev).bfloat16().contiguous(
             memory_format=torch.channels_last_3d)
         return tk.bn_act, [x, *(v.bfloat16() for v in _aff(rng, 16, dev))], 1
+    if name == "bn_act_pool":
+        x = _act(rng, (1, 16, 2, 16, 24), dev).bfloat16().contiguous(
+            memory_format=torch.channels_last_3d)
+        return (lambda *a: tk.bn_act_pool(*a)[1],
+                [x, *(v.bfloat16() for v in _aff(rng, 16, dev))], 1)
     return tk.motion_head_conv_chain, list(_head_args(rng, 1, 2, 16, 24, dev)), 7
 
 
@@ -834,6 +840,83 @@ def test_bn_act_refuses_what_it_does_not_take(cuda, rng):
         assert tk.launches["bn_act"] == n
 
 
+#: inputs of the pass with the pool: DDFFNet's five sites at b2 of 10 x 64 x 96
+#: (C 64 to 512, conv3_3's kept), and C 8 at an odd number of output columns
+BN_ACT_POOL_SHAPES = {"conv1_2": ((2, 64, 10, 64, 96), False),
+                      "conv2_2": ((2, 128, 10, 32, 48), False),
+                      "conv3_3_keep": ((2, 256, 10, 16, 24), True),
+                      "conv4_3": ((2, 512, 10, 8, 12), False),
+                      "conv5_3": ((2, 512, 10, 4, 6), False),
+                      "c8_odd_columns": ((3, 8, 5, 6, 14), True)}
+
+
+def _bits(t):
+    return t.view(torch.int16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("where", list(BN_ACT_POOL_SHAPES))
+def test_bn_act_pool_is_bn_act_then_max_pool3d(cuda, where, dtype):
+    """The pass with the pool is ``bn_act`` then ATen's ``F.max_pool3d`` on the
+    card bit for bit, signed zeros, NaN and ties included, and its twin value
+    for value (the twin's ReLU is ATen's, whose zero may lose its sign); one
+    launch, NDHWC outputs, the BN-ReLU written only where kept."""
+    import torch.nn.functional as F
+
+    shape, keep = BN_ACT_POOL_SHAPES[where]
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = (2 * torch.randn(shape, generator=gen, device=cuda)).to(dtype)
+    x[:, :, :, ::3] = 0.0  # ties of +0
+    x[:, ::4, :, ::2, ::2] = -0.0  # each window's first value, every fourth channel
+    x[0, 1, 0, 0, 1] = x[0, 2, 1, 1, 0] = float("nan")
+    x[1, 3, 0, 2, :] = x[1, 3, 0, 3, :]  # equal rows: ties between h
+    x = x.contiguous(memory_format=torch.channels_last_3d)
+    scale, shift = (v.to(dtype) for v in _aff(np.random.default_rng(7), shape[1], cuda))
+    scale[::4], shift[::4] = scale[::4].abs(), -0.0  # -0 * s + -0 = -0 through the ReLU
+    assert tk.bn_act_pool_takes(x)
+    y, pooled = tk.bn_act_pool(x, scale, shift, keep)
+    torch.cuda.synchronize()
+    assert tk.launches == {**dict.fromkeys(tk.launches, 0), "bn_act_pool": 1}
+    b, c, n, h, w = shape
+    assert pooled.shape == (b, c, n, h // 2, w // 2) and pooled.dtype == dtype
+    assert pooled.is_contiguous(memory_format=torch.channels_last_3d)
+    y2 = tk.bn_act(x, scale, shift, None, True)
+    want = F.max_pool3d(y2, (1, 2, 2))
+    assert torch.equal(_bits(pooled), _bits(want))
+    assert bool(pooled.isnan().any()) and bool(torch.signbit(pooled[pooled == 0]).any())
+    if keep:
+        assert y.stride() == x.stride() and torch.equal(_bits(y), _bits(y2))
+    else:
+        assert y is None
+    for got, twin in zip((y, pooled), tk.bn_act_pool_ref(x, scale, shift, keep)):
+        if got is not None:
+            nan = twin.isnan()
+            assert torch.equal(nan, got.isnan()) and torch.equal(twin[~nan], got[~nan])
+
+
+def test_bn_act_pool_refuses_what_it_does_not_take(cuda, rng):
+    """On the card the wrapper raises where the kernel does not read x: no
+    launch, no fallback."""
+    cl = torch.channels_last_3d
+    x = _act(rng, (1, 16, 2, 16, 24), cuda).bfloat16().contiguous(memory_format=cl)
+    scale, shift = (v.bfloat16() for v in _aff(rng, 16, cuda))
+    flat = torch.empty(x.numel() + 8, dtype=torch.bfloat16, device=cuda)
+    cases = {"ncdhw": x.contiguous(), "fp32": x.float(),
+             "c12": _act(rng, (1, 12, 2, 16, 24), cuda).bfloat16().contiguous(memory_format=cl),
+             "odd h": x[:, :, :, :15].contiguous(memory_format=cl),
+             "odd w": x[:, :, :, :, :23].contiguous(memory_format=cl),
+             "misaligned": flat[1:1 + x.numel()].as_strided(x.shape, x.stride()),
+             "4-d": x[:, :, 0]}
+    for what, a in cases.items():
+        assert not tk.bn_act_pool_takes(a), what
+        with pytest.raises(ValueError, match="bn_act_pool takes"):
+            tk.bn_act_pool(a, scale[:a.shape[1]], shift[:a.shape[1]])
+    assert tk.launches["bn_act_pool"] == 0
+    for k in range(1, 4):
+        tk.bn_act_pool(x, scale, shift)
+        assert tk.launches["bn_act_pool"] == k
+
+
 # --- the command lines and the prefetch on the card ---------------------------
 # The card's installation has no h5py and no imageio (PERF.md §7): these tests
 # read cv2, EXR and in-memory data, and keep the depth images in memory.
@@ -1056,7 +1139,8 @@ def test_spatial_chain_sites_on_the_card(cuda, tmp_path):
         for site, ref in want.items():
             for how in ("kernels", "stock"):
                 torch.testing.assert_close(r[f"{site}_{how}"], ref, rtol=0, atol=1e-4)
-        assert r["launches_kernels"] == {**dict.fromkeys(E2E_LAUNCHES, 1), "bn_act": 0}
+        assert r["launches_kernels"] == {**dict.fromkeys(E2E_LAUNCHES, 1), "bn_act": 0,
+                                         "bn_act_pool": 0}
         assert r["launches_stock"] == dict.fromkeys(E2E_LAUNCHES, 0)
         assert r["traffic"]["host_staged"] > 0  # gloo carries host tensors
 
@@ -1136,7 +1220,8 @@ def test_ddffnet_bf16_on_the_card_matches_the_reference(cuda):
     Every conv, upconv and pool keeps the NDHWC layout (no stock conv
     counts NCDHW; each output but the one-channel map's and the fusion's is
     NDHWC), none of the five hand kernels launches, and each of its
-    25 eval BNs is one launch of the BN pass."""
+    25 eval BNs is one launch of the BN pass, the five that a max-pool
+    reads of the pass with the pool."""
     import json
     import math
     from pathlib import Path
@@ -1186,7 +1271,8 @@ def test_ddffnet_bf16_on_the_card_matches_the_reference(cuda):
         h.remove()
     with torch.inference_mode():
         want = ref(fs.float(), fd)
-    assert tk.launches == {**dict.fromkeys(tk.launches, 0), "bn_act": 25}
+    assert tk.launches == {**dict.fromkeys(tk.launches, 0), "bn_act": 20, "bn_act_pool": 5}
+    assert counts["stock.pool_fused"] == 5 and "stock.pool_aten" not in counts
     assert counts["stock.conv_ndhwc"] == 31 and "stock.conv_ncdhw" not in counts
     assert len(layouts) == 30 and all(layouts)  # every conv and upconv but the last two
     assert len(got) == len(want) == 2

@@ -193,7 +193,8 @@ def test_cpu_tensors_never_touch_the_library(monkeypatch):
                               torch.zeros(16, 16, 1, 3, 3), aff16, torch.zeros(16, 16, 1, 3, 3),
                               aff16, torch.zeros(3, 16, 1, 3, 3), torch.zeros(3))
     tk.bn_act(torch.zeros(1, 8, 2, 8, 8, dtype=torch.bfloat16), *aff, x.bfloat16(), True)
-    assert len(tk.launches) == 6
+    tk.bn_act_pool(x.bfloat16().contiguous(memory_format=torch.channels_last_3d), *aff, True)
+    assert len(tk.launches) == 7
     assert tk.launches == dict.fromkeys(tk.launches, 0)
 
 

@@ -410,7 +410,8 @@ def test_chip_smoke_headline_phase_checks(smoke, monkeypatch, capsys, fault):
         got = smoke.phase_headline(torch, "NVIDIA H100 80GB HBM3, 700.00 W")
         assert got == {"fm_conv_bn_relu": 276, "rb2d_residual": 276,
                        "srd_attention_residual": 276, "rb_of_chain": 108,
-                       "motion_head_conv_chain": 36, "bn_act": 55 * 240 + 65 * 36}
+                       "motion_head_conv_chain": 36, "bn_act": 55 * 240 + 65 * 36,
+                       "bn_act_pool": 0}
     else:
         with pytest.raises(RuntimeError, match="headline"):
             smoke.phase_headline(torch, "NVIDIA H100 80GB HBM3, 700.00 W")
